@@ -1,0 +1,209 @@
+"""hash10x-compatible sequential command-language CLI for the torch port.
+
+Each flag is a command executed immediately, in order, against shared state
+(``hash10x.c:~main``, SURVEY.md §3.1 #1); parameters must precede the
+commands that use them.  Output matches ``python -m hash10x_tpu`` byte for
+byte on the flags below, except the number after ``table slots``, which
+follows each package's own table growth.
+
+Usage: python -m hash10x_tpu_torch [commands...]
+
+Parameters (take effect for later commands):
+  --device <cuda|cpu>  device to run on (default cuda; there is no fallback:
+                       without a CUDA device, pass --device cpu)
+  -k <int>             k-mer size (default 21)
+  -w <int>             minimizer window (default 11)
+  -r <int>             hash seed (default 17)
+  -B | --tableBits <b> count table starts with 2^b slots (default 22)
+  --minCount <n> --maxCount <n>   count band for good k-mers
+  --friendShare <n>    friend-mode barcode share threshold
+  --batchReads <n>
+
+Commands (executed in order):
+  --readFastq <fq>     parse FASTQ (16bp GEM barcode prefix) and run the count pass
+  --readFastqPair <r1> <r2>   paired lane: R1 = barcode+genomic, R2 = genomic
+  --readFQB <fqb>      load packed reads and run the count pass
+  --simulate <spec>    generate a simulated lane (key=val,...)
+  --hashInfo           table summary to stdout
+  --hashDist           count histogram to stdout
+  --writeCounts <f>    dump (hash, count) table as text
+  --writeClusters <f>  dump (code, kmer hash, cluster) assignments as text
+  --cluster | --codeClusters   count-band filter + incidence + per-barcode clusters
+  --clusterSplit       remap (code, cluster) -> new molecule codes
+  --clusterReport      per-code cluster report to stdout
+  --help
+
+The other flags of hash10x_tpu exit with "not yet ported".  Every command is
+followed by a timing/RSS line on stderr.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import List, Optional
+
+__all__ = ["main", "run"]
+
+# flags of the JAX package's CLI that this port does not run yet
+_NOT_PORTED = {
+    "--hosts", "--hostId", "--coordinator", "--minimizer", "--modimizer",
+    "--allKmers", "--syncmer", "--minShare", "--clusterMode", "--maxFriends",
+    "--countMode", "--shards", "--laneCapacity", "--labelBlocks", "-t",
+    "--readFQBShard", "--writeFQB", "--writeHash", "--readHash", "--errorFix",
+    "--errorFixReads", "--metrics", "--devMem", "--profile", "--cribBuild",
+    "--cribReport"}
+
+
+class _State:
+    def __init__(self, err):
+        self.err = err
+        self.device = "cuda"
+        self.k = 21
+        self.w = 11
+        self.seed = 17
+        self.table_bits = 22
+        self.min_count = 2
+        self.max_count = 64
+        self.min_friend_share = 8
+        self.batch_reads = 4096
+        self.engine = None
+        self.fqb = None
+
+    def get_engine(self):
+        from ..engine import Engine, EngineConfig
+        from ..hashspec import HashSpec
+        if self.engine is None:
+            import torch
+            dev = torch.device(self.device)
+            if dev.type == "cuda" and not torch.cuda.is_available():
+                raise SystemExit(
+                    "--device cuda: no CUDA device is available; pass "
+                    "--device cpu to run the plain torch path on the CPU")
+            cfg = EngineConfig(
+                spec=HashSpec(k=self.k, w=self.w, seed=self.seed),
+                table_bits=self.table_bits, batch_reads=self.batch_reads,
+                min_count=self.min_count, max_count=self.max_count,
+                min_friend_share=self.min_friend_share)
+            self.engine = Engine(cfg, dev, log=self.err)
+        else:
+            # tunables may change between commands; hash, table and device
+            # parameters are guarded instead
+            cfg = self.engine.cfg
+            cfg.min_count = self.min_count
+            cfg.max_count = self.max_count
+            cfg.min_friend_share = self.min_friend_share
+            cfg.batch_reads = self.batch_reads
+        return self.engine
+
+    def param_change_guard(self):
+        if self.engine is not None and self.engine.n_reads_counted > 0:
+            raise SystemExit("hash parameters must be set before reading data "
+                             "(tables are only comparable with identical k/w/seed)")
+        self.engine = None
+
+
+def _parse_sim(spec: str):
+    from ..io.sim import SimConfig
+    kwargs = {}
+    if spec:
+        for kv in spec.split(","):
+            key, val = kv.split("=")
+            kwargs[key] = float(val) if "." in val else int(val)
+    return SimConfig(**kwargs)
+
+
+def main(argv: Optional[List[str]] = None, out=None, err=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    out = out or sys.stdout
+    if not argv or "--help" in argv or "-h" in argv:
+        out.write(__doc__)
+        return 0
+    run(argv, out, err or sys.stderr)
+    return 0
+
+
+def run(argv: List[str], out, err):
+    """Execute the commands of ``argv`` in order; returns the engine they
+    ran on (None if no command needed one)."""
+    from ..io import fqb as FB
+    from ..io.sim import simulate
+
+    st = _State(err)
+    i = 0
+
+    def need(n: int, flag: str) -> List[str]:
+        nonlocal i
+        if i + n > len(argv) - 1:
+            raise SystemExit(f"{flag} requires {n} argument(s)")
+        args = argv[i + 1:i + 1 + n]
+        i += n
+        return args
+
+    while i < len(argv):
+        a = argv[i]
+        # ---- parameters ----
+        if a == "--device":
+            st.param_change_guard(); st.device = need(1, a)[0]
+        elif a == "-k":
+            st.param_change_guard(); st.k = int(need(1, a)[0])
+        elif a == "-w":
+            st.param_change_guard(); st.w = int(need(1, a)[0])
+        elif a == "-r":
+            st.param_change_guard(); st.seed = int(need(1, a)[0])
+        elif a in ("-B", "--tableBits"):
+            st.param_change_guard(); st.table_bits = int(need(1, a)[0])
+        elif a == "--minCount":
+            st.min_count = int(need(1, a)[0])
+        elif a == "--maxCount":
+            st.max_count = int(need(1, a)[0])
+        elif a == "--friendShare":
+            st.min_friend_share = int(need(1, a)[0])
+        elif a == "--batchReads":
+            st.batch_reads = int(need(1, a)[0])
+        # ---- commands ----
+        elif a == "--readFastq":
+            st.fqb = FB.fastq_to_fqb(need(1, a)[0])
+            st.get_engine().count(st.fqb)
+        elif a == "--readFastqPair":
+            r1, r2 = need(2, a)
+            st.fqb = FB.paired_fastq_to_fqb(r1, r2)
+            st.get_engine().count(st.fqb)
+        elif a == "--readFQB":
+            st.fqb = FB.load_fqb(need(1, a)[0])
+            st.get_engine().count(st.fqb)
+        elif a == "--simulate":
+            sim = simulate(_parse_sim(need(1, a)[0]))
+            st.fqb = FB.from_read_batch(sim.reads)
+            st.get_engine().count(st.fqb)
+        elif a == "--hashInfo":
+            st.get_engine().info(out)
+        elif a == "--hashDist":
+            st.get_engine().write_histogram(out)
+        elif a == "--writeCounts":
+            with open(need(1, a)[0], "w") as f:
+                st.get_engine().write_counts(f)
+        elif a == "--writeClusters":
+            with open(need(1, a)[0], "w") as f:
+                st.get_engine().write_clusters(f)
+        elif a in ("--cluster", "--codeClusters"):
+            eng = st.get_engine()
+            if st.fqb is None:
+                raise SystemExit("--codeClusters: no reads loaded for incidence")
+            eng.filter(st.min_count, st.max_count)
+            eng.incidence(st.fqb)
+            eng.cluster()
+        elif a == "--clusterSplit":
+            st.get_engine().split()
+        elif a == "--clusterReport":
+            st.get_engine().report(out)
+        elif a in _NOT_PORTED:
+            raise SystemExit(f"{a}: not yet ported to hash10x_tpu_torch "
+                             "(run it with python -m hash10x_tpu)")
+        else:
+            raise SystemExit(f"unknown argument {a!r} (see --help)")
+        i += 1
+    return st.engine
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,174 @@
+"""Sketch kernel wrapper: the CUDA kernel on CUDA tensors, the plain torch
+version on CPU tensors.
+
+Replaces the TPU kernel of ``hash10x_tpu/kernels/minimizer_pallas.py``
+(``_make_kernel``, launched through ``pl.pallas_call`` at :403 and exposed as
+``sketch``/``sketch_minimizer_compact``).  The CUDA source is
+``csrc/minimizer.cu``; its header says what bounds it on an H100 (a per-read
+sequential scan that reads ~1 byte per base and writes ~9 bytes per emitted
+slot) and what the one-thread-per-read design does about it.
+
+``sketch`` launches the kernel for a CUDA tensor and raises when it cannot;
+it never gives way to the plain version there.  ``sketch_plain`` is the same
+function in plain torch (``core/seqhash.py`` plus an in-order compaction)
+and serves CPU tensors.  ``LAUNCHES`` counts kernel launches and
+``PLAIN_CALLS`` counts plain-version calls made by ``sketch``.
+
+The kernel is built with ``nvcc`` for ``sm_90a`` into ``_build/`` (ignored by
+git) at first use, keyed by a hash of the source, and loaded with ctypes.
+Kernel modes: ``minimizer`` and ``kmer``; other modes raise
+``NotImplementedError`` on CUDA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from .. import INT64_MAX
+from ..core import seqhash
+from ..hashspec import HashSpec
+
+__all__ = ["sketch", "sketch_plain", "build", "LAUNCHES", "PLAIN_CALLS",
+           "KERNEL_MODES", "MAX_W"]
+
+LAUNCHES = 0
+PLAIN_CALLS = 0
+
+KERNEL_MODES = {"kmer": 0, "minimizer": 1}
+MAX_W = 64  # the kernel's deque ring (csrc/minimizer.cu kRing)
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "minimizer.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_lib = None
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the sketch kernel needs the CUDA "
+                       "toolkit (set CUDA_HOME)")
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"minimizer_{tag}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    lib = ctypes.CDLL(str(so))
+    fn = lib.h10x_sketch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def sketch_plain(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor,
+                 mode: str = "minimizer", compact_to: int = 0, m: int = 0,
+                 syncmer_s: int = 0):
+    """Plain torch sketch with the kernel's outputs.
+
+    Returns ``(hashes, is_forward, emit, overflow)``.  With ``compact_to=0``
+    the first three are dense (B, P) grids (hashes of every valid position,
+    ``INT64_MAX`` elsewhere) and ``overflow`` is zero.  With ``compact_to=C``
+    each read's emissions move to the front of a (B, C) row in ascending
+    position order, ``INT64_MAX`` pads follow, and ``overflow (B,) int32``
+    counts the emissions past C exactly."""
+    h, fwd, emit = seqhash.sketch(spec, codes, lengths, mode=mode, m=m,
+                                  syncmer_s=syncmer_s)
+    B = h.shape[0]
+    dev = h.device
+    if not compact_to:
+        return h, fwd, emit, torch.zeros(B, dtype=torch.int32, device=dev)
+    C = compact_to
+    rank = torch.cumsum(emit.to(torch.int64), dim=1) - 1
+    slot = torch.where(emit & (rank < C), rank, C)  # column C is discarded
+    out_h = torch.full((B, C + 1), INT64_MAX, dtype=torch.int64, device=dev)
+    out_h.scatter_(1, slot, torch.where(emit, h, INT64_MAX))
+    out_f = torch.zeros((B, C + 1), dtype=torch.bool, device=dev)
+    out_f.scatter_(1, slot, fwd & emit)
+    hashes = out_h[:, :C].contiguous()
+    overflow = torch.clamp(emit.sum(dim=1) - C, min=0).to(torch.int32)
+    return hashes, out_f[:, :C].contiguous(), hashes != INT64_MAX, overflow
+
+
+def sketch(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor,
+           mode: str = "minimizer", compact_to: int = 0):
+    """Sketch a batch: ``codes (B, L) uint8``, ``lengths (B,) int32``.
+
+    Same outputs as :func:`sketch_plain`.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel on the current stream or raise."""
+    global LAUNCHES, PLAIN_CALLS
+    if codes.device.type == "cpu":
+        PLAIN_CALLS += 1
+        return sketch_plain(spec, codes, lengths, mode=mode,
+                            compact_to=compact_to)
+    if codes.device.type != "cuda":
+        raise ValueError(f"sketch: unsupported device {codes.device}")
+    if mode not in KERNEL_MODES:
+        raise NotImplementedError(
+            f"sketch mode {mode!r} has no CUDA kernel yet (kernel modes: "
+            f"{sorted(KERNEL_MODES)})")
+    if codes.dtype != torch.uint8 or codes.dim() != 2:
+        raise ValueError("codes must be a (B, L) uint8 tensor")
+    if lengths.dtype != torch.int32 or lengths.shape != codes.shape[:1]:
+        raise ValueError("lengths must be a (B,) int32 tensor")
+    if lengths.device != codes.device:
+        raise ValueError("codes and lengths must be on one device")
+    if mode == "minimizer" and spec.w > MAX_W:
+        raise ValueError(f"the CUDA sketch kernel supports w <= {MAX_W}")
+    if compact_to < 0:
+        raise ValueError("compact_to must be >= 0")
+    B, L = codes.shape
+    P = L - spec.k + 1
+    if P < 1:
+        raise ValueError(f"read length {L} < k {spec.k}")
+    codes = codes.contiguous()
+    lengths = lengths.contiguous()
+    R = compact_to or P
+    out_h = torch.empty((B, R), dtype=torch.int64, device=codes.device)
+    out_f = torch.empty((B, R), dtype=torch.uint8, device=codes.device)
+    over = torch.empty(B, dtype=torch.int32, device=codes.device)
+    lib = build()
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    rc = lib.h10x_sketch(codes.data_ptr(), lengths.data_ptr(), B, L, spec.k,
+                         spec.w, spec.factor1, spec.shift1, KERNEL_MODES[mode],
+                         compact_to, out_h.data_ptr(), out_f.data_ptr(),
+                         over.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"sketch kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return out_h, (out_f & 2) != 0, (out_f & 1) != 0, over
