@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Smoke test of the torch port on one CUDA card: build, kernel parity, the
-barcodes-mode main path at full lane scale, and a byte-level check against
-the C stand-in.
+"""Smoke test of the torch port on one CUDA card: build, kernel parity in
+every sketch mode, the barcodes-mode main path and the modimizer, syncmer,
+occurrence-count and checkpoint paths at full lane scale, and byte-level
+checks against the C stand-in and the CPU.
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
 
@@ -9,8 +10,12 @@ Phases (any failure exits non-zero):
   1. device   - the card's name and power limit (nvidia-smi) and torch's name
   2. build    - nvcc builds csrc/minimizer.cu for sm_90a (timed)
   3. parity   - the sketch kernel equals kernels.minimizer.sketch_plain bit for
-                bit on ragged, N-salted, short, homopolymer and overflow
-                batches; kernel and plain times at B=4096, L=150
+                bit (all four outputs) on ragged, N-salted, short, homopolymer
+                and overflow batches: minimizer and kmer modes, w = 100 and
+                w = 130 = P, and modimizer (m = w, 7, 2, 65521 at k = 21, 16,
+                31) and syncmer (s = 11, 5, 1, 20 at k = 21; s = 30 at k = 31)
+                modes, dense and compacted; kernel and plain times of each
+                mode at B=4096, L=150
   4. main     - the 800k-read / 50k-barcode lane of bench.py as an .fqb,
                 through hash10x_tpu_torch.cli.main on CUDA; every batch must go
                 through the kernel (launch counter > 0, plain calls == 0)
@@ -19,8 +24,22 @@ Phases (any failure exits non-zero):
                 on a 50k-read sub-lane
   6. cpu      - the CLI on CUDA and on the CPU give byte-identical output on
                 a 20k-read lane with N bases, ragged and short reads
-The last two lines of stdout are a JSON line describing the kernel and the
-JSON result line {"ok": true, "device": {...}}.
+  7. modes    - the 800k lane through the CLI on CUDA with --syncmer 11 and
+                with --modimizer, each through the report; kernel launches > 0
+                and plain calls == 0 in each run
+  8. counts   - BASELINE config #1 (bench.py's make_lane: 262,144 reads of
+                150 bp from a 2 Mb genome, all under barcode 0) through the
+                CLI on CUDA with --countMode occurrences: the table equals
+                native/c_ref run without --barcodes
+  9. ckpt     - the 800k lane with --errorFixReads 2 --errorFix 1 through the
+                report and --writeHash; a fresh CLI's --readHash
+                --clusterReport is byte-identical
+ 10. cpu2     - CUDA and CPU byte-identical on the 20k lane with one
+                3,000-read barcode under --batchReads 1024, for --syncmer 11,
+                --modimizer and --countMode occurrences
+The last two lines of stdout before the result are a JSON line describing
+the kernels and the card's name and power limit; the last line is the JSON
+result {"ok": true, "device": {...}}.
 """
 
 import io
@@ -57,13 +76,13 @@ def phase_device(torch):
     return smi
 
 
-def _batch(rng, B, L, k, w, bad=0.0, ragged=False):
+def _batch(rng, B, L, k, w, bad=0.0, ragged=False, homo=2):
     codes = rng.integers(0, 4, size=(B, L)).astype(np.uint8)
     if bad:
         codes[rng.random(codes.shape) < bad] = 4
     lengths = (rng.integers(0, L + 1, size=B) if ragged
                else np.full(B, L)).astype(np.int32)
-    codes[0] = 2                      # homopolymer
+    codes[0] = homo                   # homopolymer
     codes[1, :L // 2] = 3
     lengths[2] = k + w - 2            # short read: 0 < P_i < w
     lengths[3] = k                    # exactly one k-mer
@@ -110,20 +129,32 @@ def phase_parity(torch, MK, HashSpec, compact_rows):
 
     # times at the main path's shape (B=4096, L=150, k=21, w=11, C)
     spec = HashSpec(k=K, w=W, seed=SEED)
-    codes, lengths = _batch(rng, PARITY_B, READ_LEN, K, W)
+    ms, plain_ms = time_sketch(torch, MK, rng, spec,
+                               dict(mode="minimizer", compact_to=compact_rows))
+    print(f"sketch B={PARITY_B} L={READ_LEN} k={K} w={W} C={compact_rows}: "
+          f"kernel {ms:.4f} ms/batch, plain {plain_ms:.4f} ms/batch "
+          f"(CUDA events, mean of 2x50 launches each)")
+    return max_err, ms, plain_ms
+
+
+def time_sketch(torch, MK, rng, spec, kw, n=50):
+    """Kernel and plain ms per B=4096, L=150 batch: CUDA events over n
+    launches after 3 warm-ups, in the order kernel, plain, plain, kernel."""
+    dev = torch.device("cuda")
+    codes, lengths = _batch(rng, PARITY_B, READ_LEN, spec.k, spec.w)
     lengths[:] = READ_LEN
     c = torch.from_numpy(codes).to(dev)
     ln = torch.from_numpy(lengths).to(dev)
 
-    def timed(fn, n=50):
+    def timed(fn):
         for _ in range(3):
-            fn(spec, c, ln, mode="minimizer", compact_to=compact_rows)
+            fn(spec, c, ln, **kw)
         torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
         for _ in range(n):
-            fn(spec, c, ln, mode="minimizer", compact_to=compact_rows)
+            fn(spec, c, ln, **kw)
         e1.record()
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / n
@@ -131,11 +162,61 @@ def phase_parity(torch, MK, HashSpec, compact_rows):
     for fn, acc in ((MK.sketch, ms), (MK.sketch_plain, plain_ms),
                     (MK.sketch_plain, plain_ms), (MK.sketch, ms)):
         acc.append(timed(fn))
-    ms, plain_ms = float(np.mean(ms)), float(np.mean(plain_ms))
-    print(f"sketch B={PARITY_B} L={READ_LEN} k={K} w={W} C={compact_rows}: "
-          f"kernel {ms:.4f} ms/batch, plain {plain_ms:.4f} ms/batch "
-          f"(CUDA events, mean of 2x50 launches each)")
-    return max_err, ms, plain_ms
+    return float(np.mean(ms)), float(np.mean(plain_ms))
+
+
+def phase_mode_parity(torch, MK, HashSpec, compact_rows_of):
+    """Kernel == plain in the modimizer and syncmer modes and at w > 64,
+    dense and compacted at the engine's width, on ragged N-salted batches
+    whose row 0 is a full-length poly-A read: its hash is 0, so every
+    position is a modimizer and (all s-mers tie) a syncmer, and the
+    compacted row must overflow.  Returns per mode (max_abs_err, ms,
+    plain_ms)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 1)
+    cases = [("minimizer", 21, 100, {}), ("minimizer", 21, 130, {})]
+    cases += [("modimizer", k, W, {"m": m}) for k in (21, 16, 31)
+              for m in (0, 7, 2, 65521)]
+    cases += [("syncmer", 21, W, {"syncmer_s": s}) for s in (11, 5, 1, 20)]
+    cases += [("syncmer", 31, W, {"syncmer_s": 30})]
+    err = {"modimizer": 0.0, "syncmer": 0.0, "minimizer": 0.0}
+    for mode, k, w, kw in cases:
+        spec = HashSpec(k=k, w=w, seed=SEED)
+        C_eng = compact_rows_of(spec, mode, kw)
+        codes, lengths = _batch(rng, PARITY_B, READ_LEN, k, w, 0.01, True,
+                                homo=0)
+        lengths[0] = READ_LEN
+        c = torch.from_numpy(codes).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        for C in dict.fromkeys((0, C_eng)):  # C_eng is 0 where P is too short
+            got = MK.sketch(spec, c, ln, mode=mode, compact_to=C, **kw)
+            torch.cuda.synchronize()
+            ref = MK.sketch_plain(spec, c, ln, mode=mode, compact_to=C, **kw)
+            torch.cuda.synchronize()
+            e = float((got[0] - ref[0]).abs().max()) if got[0].numel() else 0.0
+            err[mode] = max(err[mode], e)
+            same = all(torch.equal(a, b) for a, b in zip(got, ref))
+            homo_over = (int(got[3][0]), int(ref[3][0]))
+            print(f"parity {mode} k={k} w={w} {kw} C={C}: "
+                  f"{'equal' if same else 'DIFFERENT'} (emitted "
+                  f"{int(got[2].sum())}, overflow {int(got[3].sum())}, "
+                  f"poly-A row overflow {homo_over[0]})")
+            if not same:
+                fail(f"kernel != plain for {mode} k={k} w={w} {kw} C={C}")
+            if C and mode != "minimizer" and (
+                    homo_over[0] != homo_over[1] or homo_over[0] <= 0):
+                fail(f"the poly-A row did not overflow C={C} for {mode} {kw}")
+    out = {}
+    for mode, kw in (("modimizer", {"m": W}), ("syncmer", {"syncmer_s": 11})):
+        spec = HashSpec(k=K, w=W, seed=SEED)
+        C = compact_rows_of(spec, mode, kw)
+        ms, plain_ms = time_sketch(torch, MK, rng, spec,
+                                   dict(mode=mode, compact_to=C, **kw))
+        print(f"sketch {mode} {kw} B={PARITY_B} L={READ_LEN} k={K} C={C}: "
+              f"kernel {ms:.4f} ms/batch, plain {plain_ms:.4f} ms/batch "
+              f"(CUDA events, mean of 2x50 launches each)")
+        out[mode] = (err[mode], ms, plain_ms)
+    return out, err["minimizer"]
 
 
 def make_lane():
@@ -179,11 +260,7 @@ def phase_main(torch, MK, run, lane):
     print(f"main path: kernel launches {launches}, plain calls {plain}")
     if launches <= 0 or plain != 0:
         fail("the main path did not run every batch through the kernel")
-    walls = {}
-    for line in err.getvalue().splitlines():
-        label = line[1:line.index("]")].split(":")[0].split(" ")[0]
-        walls[label] = walls.get(label, 0.0) + float(
-            line.split("] wall ")[1].split("s")[0])
+    walls = stage_walls(err.getvalue())
     phases = {"count": walls["count"],
               "filter+incidence": walls["filter"] + walls["incidence"],
               "cluster": walls["cluster"], "split": walls["split"],
@@ -199,6 +276,16 @@ def phase_main(torch, MK, run, lane):
     if "table slots" not in text or "code 0 nKmers" not in text:
         fail("main path output lacks --hashInfo or --clusterReport lines")
     return eng, text, launches
+
+
+def stage_walls(err_text):
+    """Seconds per stage label from the CLI's stderr timing lines."""
+    walls = {}
+    for line in err_text.splitlines():
+        label = line[1:line.index("]")].split(":")[0].split(" ")[0]
+        walls[label] = walls.get(label, 0.0) + float(
+            line.split("] wall ")[1].split("s")[0])
+    return walls
 
 
 def c_ref_exe(tmp):
@@ -307,6 +394,161 @@ def phase_cuda_vs_cpu(run, tmp):
           f"({outs[0][0].count(chr(10))} lines) and dumps byte-identical")
 
 
+def run_counted(torch, MK, run, argv):
+    """One CLI run on CUDA with the launch counters set to 0 just before it
+    and read just after; fails unless every batch went through the kernel.
+    Returns (stdout, stderr, engine, launches, wall seconds)."""
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    MK.LAUNCHES = 0
+    MK.PLAIN_CALLS = 0
+    t0 = time.monotonic()
+    eng = run(argv, out, err)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches, plain = MK.LAUNCHES, MK.PLAIN_CALLS
+    if launches <= 0 or plain != 0:
+        fail(f"{' '.join(argv[-8:])}: kernel launches {launches}, plain "
+             f"calls {plain}")
+    return out.getvalue(), err.getvalue(), eng, launches, wall
+
+
+def phase_modes(torch, MK, run, lane):
+    """The 800k lane through the report with --syncmer 11 and --modimizer."""
+    launches = {}
+    for mode, flags in (("syncmer", ["--syncmer", "11"]),
+                        ("modimizer", ["--modimizer"])):
+        argv = ["-k", str(K), "-w", str(W), "-r", str(SEED), "-B", "22",
+                *flags, "--minCount", "2", "--maxCount", "64",
+                "--friendShare", "8", "--readFQB", lane, "--hashInfo",
+                "--codeClusters", "--clusterSplit", "--clusterReport"]
+        out, err, eng, n, wall = run_counted(torch, MK, run, argv)
+        walls = stage_walls(err)
+        phases = {"count": walls["count"],
+                  "filter+incidence": walls["filter"] + walls["incidence"],
+                  "cluster": walls["cluster"], "split": walls["split"],
+                  "report": walls["report"]}
+        total = sum(phases.values())
+        print(f"modes {mode}: kernel launches {n}, plain calls 0; walls (s): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+              + f"; sum {total:.3f} ({N_READS / total:.1f} reads/s); CLI "
+              f"wall {wall:.3f}; {eng.table.n_filled} kmers, "
+              f"{eng.inc.n_pairs} incidence pairs; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        if "table slots" not in out or f"code {N_CODES - 1} nKmers" not in out:
+            fail(f"{mode} lane output lacks --hashInfo or report lines")
+        launches[mode] = n
+        del eng  # the next run's peak memory must not hold this state
+    return launches
+
+
+def make_count_lane():
+    """bench.py's make_lane: 262,144 reads of 150 bp from a 2 Mb random
+    genome (seed 7), all under barcode 0 (BASELINE config #1)."""
+    rng = np.random.default_rng(7)
+    genome = rng.integers(0, 4, size=2_000_000).astype(np.uint8)
+    starts = rng.integers(0, len(genome) - READ_LEN, size=1 << 18)
+    return genome[starts[:, None] + np.arange(READ_LEN)[None, :]]
+
+
+def phase_counts(torch, MK, run, tmp):
+    """Config #1 occurrence table through the CLI on CUDA == c_ref --dump."""
+    reads = make_count_lane()
+    n = len(reads)
+    lane = os.path.join(tmp, "count.fqb")
+    write_fqb(lane, reads, np.zeros(n, np.int32), 1)
+    table = os.path.join(tmp, "count_port.txt")
+    argv = ["-k", str(K), "-w", str(W), "-r", str(SEED), "-B", "20",
+            "--countMode", "occurrences", "--readFQB", lane, "--hashInfo",
+            "--writeCounts", table]
+    out, err, eng, launches, wall = run_counted(torch, MK, run, argv)
+    count_s = stage_walls(err)["count"]
+    exe = c_ref_exe(tmp)
+    rb = os.path.join(tmp, "count_reads.bin")
+    with open(rb, "wb") as f:
+        np.array([n, READ_LEN], np.uint32).tofile(f)
+        reads.tofile(f)
+    dump = os.path.join(tmp, "count_c.bin")
+    t0 = time.monotonic()
+    subprocess.run([exe, rb, str(K), str(W), str(SEED), "22", "--dump", dump],
+                   check=True, capture_output=True)
+    c_secs = time.monotonic() - t0
+    with open(dump, "rb") as f:
+        m = int(np.fromfile(f, np.uint64, 1)[0])
+        c_hashes = np.fromfile(f, np.uint64, m)
+        c_counts = np.fromfile(f, np.uint32, m)
+    with open(table) as f:
+        mine = f.read()
+    if mine != "".join(f"{int(h):x}\t{int(c)}\n"
+                       for h, c in zip(c_hashes, c_counts)):
+        fail("config-#1 occurrence table != c_ref --dump")
+    print(f"counts (config #1): {n} reads, {m} (hash, count) pairs equal to "
+          f"c_ref; kernel launches {launches}; count wall {count_s:.3f} s "
+          f"= {n / count_s:.1f} reads/s (first run in process); CLI wall "
+          f"{wall:.3f} s; c_ref {c_secs:.3f} s single-thread on the host "
+          f"CPU (build of its table included, run without --barcodes)")
+
+
+def phase_checkpoint(torch, MK, run, lane, tmp):
+    """errorFix with rescue through the report and --writeHash; a fresh CLI
+    resumes with --readHash and must print the same report."""
+    ck = os.path.join(tmp, "lane.hash")
+    params = ["-k", str(K), "-w", str(W), "-r", str(SEED), "-B", "22",
+              "--minCount", "2", "--maxCount", "64", "--friendShare", "8"]
+    out1, err1, _, _, wall1 = run_counted(
+        torch, MK, run, params + ["--errorFixReads", "2", "--readFQB", lane,
+                                  "--errorFix", "1", "--codeClusters",
+                                  "--clusterReport", "--writeHash", ck])
+    if err1.count("[count:") != 2:  # the lane's count and the rescue pass
+        fail("the errorFix rescue pass did not run")
+    out2, err2 = io.StringIO(), io.StringIO()
+    t0 = time.monotonic()
+    run(params + ["--readHash", ck, "--clusterReport"], out2, err2)
+    wall2 = time.monotonic() - t0
+    if out2.getvalue() != out1 or f"code {N_CODES - 1} nKmers" not in out1:
+        fail("the report after --readHash differs from the one before "
+             "--writeHash")
+    fix = [l for l in err1.splitlines() if l.startswith("[errorFix")][0]
+    print(f"checkpoint: {fix.split(']')[0][1:]}; report "
+          f"({out1.count(chr(10))} lines) byte-identical after --readHash; "
+          f"first CLI {wall1:.3f} s, resume CLI {wall2:.3f} s, checkpoint "
+          f"{os.path.getsize(ck + '.npz') / 1e6:.1f} MB")
+
+
+def phase_cuda_vs_cpu_modes(run, tmp):
+    """The 20k lane with one 3,000-read barcode: CUDA and CPU byte-identical
+    under --syncmer 11, --modimizer and --countMode occurrences."""
+    from hash10x_tpu_torch.io.fqb import load_fqb, save_fqb
+    fqb = load_fqb(os.path.join(tmp, "ragged.fqb"))
+    big = fqb.barcode_ids[0]
+    fqb.barcode_ids[:3000] = big
+    lane = os.path.join(tmp, "ragged_big.fqb")
+    save_fqb(lane, fqb)
+    for flags in (["--syncmer", "11"], ["--modimizer"],
+                  ["--countMode", "occurrences"]):
+        outs = []
+        for dev in ("cuda", "cpu"):
+            out = io.StringIO()
+            files = [os.path.join(tmp, f"big_{dev}.{x}")
+                     for x in ("counts", "clusters")]
+            run(["--device", dev, "-k", str(K), "-w", str(W), "-r",
+                 str(SEED), *flags, "--batchReads", "1024", "--friendShare",
+                 "4", "--readFQB", lane, "--hashInfo", "--hashDist",
+                 "--codeClusters", "--clusterSplit", "--clusterReport",
+                 "--writeCounts", files[0], "--writeClusters", files[1]],
+                out, io.StringIO())
+            texts = [out.getvalue()]
+            for f in files:
+                with open(f) as fh:
+                    texts.append(fh.read())
+            outs.append(texts)
+        if outs[0] != outs[1]:
+            fail(f"CUDA and CPU runs differ with {' '.join(flags)}")
+        print(f"cuda vs cpu {' '.join(flags)}: 20k lane with a 3,000-read "
+              f"barcode at --batchReads 1024, stdout "
+              f"({outs[0][0].count(chr(10))} lines) and dumps byte-identical")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -324,10 +566,16 @@ def main() -> int:
     MK.build()
     print(f"build: {time.monotonic() - t0:.3f} s (nvcc {' '.join(MK.NVCC_FLAGS)})")
 
-    probe = Engine(EngineConfig(spec=HashSpec(k=K, w=W, seed=SEED)), "cuda",
-                   log=None)
-    compact_rows = probe._compact_rows(READ_LEN - K + 1)
+    def compact_rows_of(spec, mode="minimizer", kw=None):
+        kw = kw or {}
+        cfg = EngineConfig(spec=spec, mode=mode, modulus=kw.get("m", 0),
+                           syncmer_s=kw.get("syncmer_s", 0))
+        return Engine(cfg, "cuda", log=None)._compact_rows(
+            READ_LEN - spec.k + 1)
+    compact_rows = compact_rows_of(HashSpec(k=K, w=W, seed=SEED))
     max_err, ms, plain_ms = phase_parity(torch, MK, HashSpec, compact_rows)
+    modes, err_w = phase_mode_parity(torch, MK, HashSpec, compact_rows_of)
+    max_err = max(max_err, err_w)
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.monotonic()
@@ -339,16 +587,24 @@ def main() -> int:
         eng, text, launches = phase_main(torch, MK, run, lane)
         phase_c_ref(torch, st, run, eng, text, reads, bc_ids, tmp)
         phase_cuda_vs_cpu(run, tmp)
+        del eng
+        mode_launches = phase_modes(torch, MK, run, lane)
+        phase_counts(torch, MK, run, tmp)
+        phase_checkpoint(torch, MK, run, lane, tmp)
+        phase_cuda_vs_cpu_modes(run, tmp)
 
-    print(json.dumps({"kernels": [{
-        "name": "seqhash_sketch",
-        "route": "cuda",
-        "source": "hash10x_tpu_torch/csrc/minimizer.cu",
-        "replaces": "hash10x_tpu/kernels/minimizer_pallas.py:403",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms}]}))
+    src = "hash10x_tpu_torch/csrc/minimizer.cu"
+    tpu = "hash10x_tpu/kernels/minimizer_pallas.py:403"
+    kernels = [{"name": "seqhash_sketch", "route": "cuda", "source": src,
+                "replaces": tpu, "launches": launches,
+                "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}]
+    for mode in ("modimizer", "syncmer"):  # emission :279-280 and :281-292
+        err, mode_ms, mode_plain_ms = modes[mode]
+        kernels.append({"name": f"seqhash_sketch_{mode}", "route": "cuda",
+                        "source": src, "replaces": tpu,
+                        "launches": mode_launches[mode], "max_abs_err": err,
+                        "ms": mode_ms, "plain_ms": mode_plain_ms})
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

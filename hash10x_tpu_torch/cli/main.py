@@ -12,29 +12,43 @@ Parameters (take effect for later commands):
   --device <cuda|cpu>  device to run on (default cuda; there is no fallback:
                        without a CUDA device, pass --device cpu)
   -k <int>             k-mer size (default 21)
-  -w <int>             minimizer window (default 11)
+  -w <int>             minimizer window / modimizer modulus (default 11)
   -r <int>             hash seed (default 17)
   -B | --tableBits <b> count table starts with 2^b slots (default 22)
+  --minimizer | --modimizer | --allKmers | --syncmer <s>   sketch mode
+  --countMode <barcodes|occurrences>
   --minCount <n> --maxCount <n>   count band for good k-mers
   --friendShare <n>    friend-mode barcode share threshold
   --batchReads <n>
+  --errorFixReads <m>  rescue threshold for --errorFix (0 = drop-only)
+  -t <n>               thread count (accepted for compatibility; ignored)
 
 Commands (executed in order):
   --readFastq <fq>     parse FASTQ (16bp GEM barcode prefix) and run the count pass
   --readFastqPair <r1> <r2>   paired lane: R1 = barcode+genomic, R2 = genomic
   --readFQB <fqb>      load packed reads and run the count pass
   --simulate <spec>    generate a simulated lane (key=val,...)
+  --writeFQB <out>     write the last-read lane as packed fqb
   --hashInfo           table summary to stdout
   --hashDist           count histogram to stdout
+  --errorFix <max>     drop error-band k-mers with count <= max; with
+                       --errorFixReads and loaded reads (barcodes mode),
+                       error-band k-mers occurring in >= that many reads are
+                       rescued
+  --writeHash <out>    save the analysis state (the JAX package's .npz)
+  --readHash <in>      load a saved state, replacing the current one
   --writeCounts <f>    dump (hash, count) table as text
   --writeClusters <f>  dump (code, kmer hash, cluster) assignments as text
-  --cluster | --codeClusters   count-band filter + incidence + per-barcode clusters
+  --cluster | --codeClusters   count-band filter + incidence + per-barcode
+                       clusters (after --readHash with no reads: cluster the
+                       loaded incidence)
   --clusterSplit       remap (code, cluster) -> new molecule codes
   --clusterReport      per-code cluster report to stdout
   --help
 
-The other flags of hash10x_tpu exit with "not yet ported".  Every command is
-followed by a timing/RSS line on stderr.
+The multi-GPU, crib, legacy cluster-mode and observability flags of
+hash10x_tpu exit with "not yet ported".  Every command is followed by a
+timing/RSS line on stderr.
 """
 
 from __future__ import annotations
@@ -46,12 +60,10 @@ __all__ = ["main", "run"]
 
 # flags of the JAX package's CLI that this port does not run yet
 _NOT_PORTED = {
-    "--hosts", "--hostId", "--coordinator", "--minimizer", "--modimizer",
-    "--allKmers", "--syncmer", "--minShare", "--clusterMode", "--maxFriends",
-    "--countMode", "--shards", "--laneCapacity", "--labelBlocks", "-t",
-    "--readFQBShard", "--writeFQB", "--writeHash", "--readHash", "--errorFix",
-    "--errorFixReads", "--metrics", "--devMem", "--profile", "--cribBuild",
-    "--cribReport"}
+    "--hosts", "--hostId", "--coordinator", "--shards", "--laneCapacity",
+    "--labelBlocks", "--readFQBShard", "--minShare", "--clusterMode",
+    "--maxFriends", "--cribBuild", "--cribReport", "--metrics", "--devMem",
+    "--profile"}
 
 
 class _State:
@@ -62,10 +74,14 @@ class _State:
         self.w = 11
         self.seed = 17
         self.table_bits = 22
+        self.mode = "minimizer"
+        self.syncmer_s = 0
+        self.count_mode = "barcodes"
         self.min_count = 2
         self.max_count = 64
         self.min_friend_share = 8
         self.batch_reads = 4096
+        self.error_fix_min_reads = 0
         self.engine = None
         self.fqb = None
 
@@ -81,9 +97,12 @@ class _State:
                     "--device cpu to run the plain torch path on the CPU")
             cfg = EngineConfig(
                 spec=HashSpec(k=self.k, w=self.w, seed=self.seed),
+                mode=self.mode, syncmer_s=self.syncmer_s,
                 table_bits=self.table_bits, batch_reads=self.batch_reads,
-                min_count=self.min_count, max_count=self.max_count,
-                min_friend_share=self.min_friend_share)
+                count_mode=self.count_mode, min_count=self.min_count,
+                max_count=self.max_count,
+                min_friend_share=self.min_friend_share,
+                error_fix_min_reads=self.error_fix_min_reads)
             self.engine = Engine(cfg, dev, log=self.err)
         else:
             # tunables may change between commands; hash, table and device
@@ -93,6 +112,7 @@ class _State:
             cfg.max_count = self.max_count
             cfg.min_friend_share = self.min_friend_share
             cfg.batch_reads = self.batch_reads
+            cfg.error_fix_min_reads = self.error_fix_min_reads
         return self.engine
 
     def param_change_guard(self):
@@ -128,6 +148,9 @@ def run(argv: List[str], out, err):
     from ..io import fqb as FB
     from ..io.sim import simulate
 
+    modes = {"--minimizer": "minimizer", "--modimizer": "modimizer",
+             "--allKmers": "kmer"}
+
     st = _State(err)
     i = 0
 
@@ -152,6 +175,13 @@ def run(argv: List[str], out, err):
             st.param_change_guard(); st.seed = int(need(1, a)[0])
         elif a in ("-B", "--tableBits"):
             st.param_change_guard(); st.table_bits = int(need(1, a)[0])
+        elif a in modes:
+            st.param_change_guard(); st.mode = modes[a]
+        elif a == "--syncmer":
+            st.param_change_guard(); st.mode = "syncmer"
+            st.syncmer_s = int(need(1, a)[0])
+        elif a == "--countMode":
+            st.param_change_guard(); st.count_mode = need(1, a)[0]
         elif a == "--minCount":
             st.min_count = int(need(1, a)[0])
         elif a == "--maxCount":
@@ -160,6 +190,10 @@ def run(argv: List[str], out, err):
             st.min_friend_share = int(need(1, a)[0])
         elif a == "--batchReads":
             st.batch_reads = int(need(1, a)[0])
+        elif a == "--errorFixReads":
+            st.error_fix_min_reads = int(need(1, a)[0])
+        elif a == "-t":
+            need(1, a)  # accepted for compatibility; the device runs batches
         # ---- commands ----
         elif a == "--readFastq":
             st.fqb = FB.fastq_to_fqb(need(1, a)[0])
@@ -175,6 +209,16 @@ def run(argv: List[str], out, err):
             sim = simulate(_parse_sim(need(1, a)[0]))
             st.fqb = FB.from_read_batch(sim.reads)
             st.get_engine().count(st.fqb)
+        elif a == "--writeFQB":
+            if st.fqb is None:
+                raise SystemExit("--writeFQB: no reads loaded")
+            FB.save_fqb(need(1, a)[0], st.fqb)
+        elif a == "--writeHash":
+            st.get_engine().save(need(1, a)[0])
+        elif a == "--readHash":
+            st.get_engine().load(need(1, a)[0])
+        elif a == "--errorFix":
+            st.get_engine().error_fix(int(need(1, a)[0]), fqb=st.fqb)
         elif a == "--hashInfo":
             st.get_engine().info(out)
         elif a == "--hashDist":
@@ -187,10 +231,13 @@ def run(argv: List[str], out, err):
                 st.get_engine().write_clusters(f)
         elif a in ("--cluster", "--codeClusters"):
             eng = st.get_engine()
-            if st.fqb is None:
-                raise SystemExit("--codeClusters: no reads loaded for incidence")
-            eng.filter(st.min_count, st.max_count)
-            eng.incidence(st.fqb)
+            if st.fqb is not None:
+                eng.filter(st.min_count, st.max_count)
+                eng.incidence(st.fqb)
+            elif eng.inc is None:
+                raise SystemExit("--codeClusters: no reads loaded for "
+                                 "incidence (and no incidence in a loaded "
+                                 "checkpoint)")
             eng.cluster()
         elif a == "--clusterSplit":
             st.get_engine().split()

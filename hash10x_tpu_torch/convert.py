@@ -1,11 +1,14 @@
-"""Host state in, port state out: numpy count tables, incidences and engine
-state (the JAX package's layout, uint64 keys with U64MAX pads) become the
-port's int64 torch state on a chosen device.
+"""The seam between host state and port state.  Inbound, numpy count
+tables, incidences and engine state (the JAX package's layout, uint64 keys
+with U64MAX pads) become the port's int64 torch state on a chosen device;
+outbound, port tensors become the JAX package's checkpoint dtypes (uint64
+keys, uint32 counts, int64 offsets, int32 ids), each range-checked.
 
 This system has no weights: its state is the count table, the retained
 count band and the incidence.  The per-phase tests load the JAX engine's
 state through these functions so each phase of the port is compared on the
-same inputs; checkpoint save/load will use the same seam.
+same inputs, and ``Engine.save``/``Engine.load`` write and read the JAX
+package's ``.npz`` checkpoints through them.
 """
 
 from __future__ import annotations
@@ -18,7 +21,11 @@ from .table import sorted_table as st
 from .table.incidence import Incidence
 
 __all__ = ["keys_from_numpy", "table_from_numpy", "incidence_from_numpy",
-           "engine_state_from_numpy"]
+           "engine_state_from_numpy", "keys_to_numpy", "to_numpy",
+           "incidence_to_numpy", "incidence_from_npz"]
+
+_INC_FIELDS = (("code_offsets", np.int64), ("code_kmers", np.int32),
+               ("kmer_offsets", np.int64), ("kmer_codes", np.int32))
 
 
 def keys_from_numpy(hashes_u64: np.ndarray, device) -> torch.Tensor:
@@ -77,3 +84,40 @@ def engine_state_from_numpy(engine, hashes_u64, counts_u32, retained_u64=None,
         else torch.from_numpy(np.asarray(retained_counts)
                               .astype(np.int32)).to(dev)
     engine.inc = None if inc is None else incidence_from_numpy(inc, dev)
+
+
+def keys_to_numpy(keys: torch.Tensor) -> np.ndarray:
+    """Real int64 keys (``INT64_MAX`` pads dropped) as host uint64."""
+    k = keys.cpu().numpy()
+    k = k[k != np.iinfo(np.int64).max]
+    if len(k) and int(k.min()) < 0:
+        raise ValueError("negative key")
+    return k.astype(np.uint64)
+
+
+def to_numpy(t: torch.Tensor, dtype, what: str) -> np.ndarray:
+    """A host array of ``dtype``; raises if a value falls outside its range."""
+    a = t.cpu().numpy()
+    info = np.iinfo(dtype)
+    if a.size and (int(a.min()) < info.min or int(a.max()) > info.max):
+        raise ValueError(f"{what} do not fit {np.dtype(dtype).name}")
+    return a.astype(dtype)
+
+
+def incidence_to_numpy(inc: Incidence, prefix: str) -> dict:
+    """The four CSR arrays of ``inc`` under ``prefix`` (``inc_`` or
+    ``split_``), in the JAX ``Incidence`` dtypes; ``inv2fwd`` is not kept."""
+    return {prefix + name: to_numpy(getattr(inc, name), dtype,
+                                    f"incidence {name}")
+            for name, dtype in _INC_FIELDS}
+
+
+def incidence_from_npz(z, prefix: str, shape, device) -> Incidence:
+    """A port Incidence from a checkpoint's ``prefix`` arrays and its
+    ``[n_kmers, n_codes]`` shape; ``inv2fwd`` is rebuilt where needed."""
+    n_kmers, n_codes = shape
+
+    def t(name):
+        return torch.from_numpy(z[prefix + name].astype(np.int64)).to(device)
+    return Incidence(int(n_kmers), int(n_codes), t("code_offsets"),
+                     t("code_kmers"), t("kmer_offsets"), t("kmer_codes"))

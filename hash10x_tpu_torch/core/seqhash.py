@@ -15,6 +15,7 @@ Invalid positions carry ``INT64_MAX`` and ``is_forward`` False.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -23,7 +24,7 @@ from .. import INT64_MAX
 from ..hashspec import HashSpec
 
 __all__ = ["to_int64", "hash_codes", "kmer_grid", "minimizer_mask",
-           "modimizer_mask", "syncmer_mask", "sketch"]
+           "modimizer_mask", "smer_spec", "syncmer_mask", "sketch"]
 
 
 def to_int64(x: int) -> int:
@@ -123,14 +124,21 @@ def modimizer_mask(spec: HashSpec, hashes: torch.Tensor, valid: torch.Tensor,
     return valid & (hashes % m == 0)
 
 
+@functools.lru_cache(maxsize=64)
+def smer_spec(spec: HashSpec, s: int, sub_seed: int = 0) -> HashSpec:
+    """The s-mer ``HashSpec`` of syncmer mode (``seqhash_jnp.py:147``).
+    Cached: deriving a spec runs the glibc ``random()`` stream in Python
+    (~0.16 ms), longer than the sketch kernel it parameterises."""
+    if not (0 < s < spec.k):
+        raise ValueError("syncmer s must satisfy 0 < s < k")
+    return HashSpec(k=s, w=1, seed=sub_seed or spec.seed)
+
+
 def syncmer_mask(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor,
                  s: int, sub_seed: int = 0) -> torch.Tensor:
     """Open-syncmer emission mask: keep a k-mer iff the minimal canonical
     s-mer hash inside it sits at offset 0 (leftmost tie-break)."""
-    if not (0 < s < spec.k):
-        raise ValueError("syncmer s must satisfy 0 < s < k")
-    sub = HashSpec(k=s, w=1, seed=sub_seed or spec.seed)
-    sh, _, _ = kmer_grid(sub, codes, lengths)
+    sh, _, _ = kmer_grid(smer_spec(spec, s, sub_seed), codes, lengths)
     P = codes.shape[1] - spec.k + 1
     base = sh[:, :P]
     keep = torch.ones_like(base, dtype=torch.bool)

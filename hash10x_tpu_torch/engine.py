@@ -1,25 +1,33 @@
 """Single-device pipeline engine: the stateful core behind the CLI — the
-port of ``hash10x_tpu/engine.py`` (barcodes-mode main path).
+port of ``hash10x_tpu/engine.py``.
 
 Commands are methods run in order against one shared state, as in the
 reference's command language:
 
     Engine.count(fqb)        ~ --readFQB       (count pass)
     Engine.histogram()/info()/write_histogram()  ~ --hashDist / --hashInfo
+    Engine.error_fix(max)    ~ --errorFix      (error-band prune, optional
+                                                read-occurrence rescue)
     Engine.filter(lo, hi)    ~ count-band "good k-mer" selection
     Engine.incidence(fqb)    ~ code-table build (second pass over reads)
     Engine.cluster()         ~ --codeClusters
     Engine.split()           ~ --clusterSplit
     Engine.report(out)       ~ --clusterReport
+    Engine.save/load(path)   ~ --writeHash / --readHash (the JAX package's
+                                                .npz checkpoint layout)
 
 Everything runs as eager torch code on ``device``; the sketch of every batch
-goes through ``kernels.minimizer.sketch`` (the CUDA kernel on a GPU).  Reads
-are grouped so one barcode never straddles a batch, which makes per-batch
-(hash, barcode) dedup exact: counts are *barcode counts*.
+goes through ``kernels.minimizer.sketch`` (the CUDA kernel on a GPU) in any
+of its four modes.  Reads are grouped so one barcode never straddles a
+batch, which makes per-batch (hash, barcode) dedup exact: counts are
+*barcode counts* (``count_mode="barcodes"``) or raw emission counts
+(``count_mode="occurrences"``).  A barcode with more reads than a batch
+streams alone as a tagged group of batches.
 """
 
 from __future__ import annotations
 
+import json
 import sys
 from dataclasses import dataclass, field
 from typing import Optional
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 
 from . import INT64_MAX
+from . import convert
 from .cluster.sparse import cluster_codes_sparse
 from .core.encode import unpack_2bit_torch
 from .hashspec import HashSpec
@@ -63,13 +72,18 @@ def coverage_peaks(hist: np.ndarray, min_frac: float = 0.05):
 @dataclass
 class EngineConfig:
     spec: HashSpec = field(default_factory=HashSpec)
-    mode: str = "minimizer"          # minimizer | kmer (the kernel's modes)
+    mode: str = "minimizer"          # kmer | minimizer | modimizer | syncmer
+    modulus: int = 0                 # modimizer modulus (0 => w)
+    syncmer_s: int = 0               # syncmer s-mer size (mode == "syncmer")
     table_bits: int = 22             # initial capacity 2^bits (grows)
     batch_reads: int = 4096
-    count_mode: str = "barcodes"     # occurrences is not ported yet
+    count_mode: str = "barcodes"     # barcodes | occurrences
     min_count: int = 2
     max_count: int = 64
     min_friend_share: int = 8
+    error_fix_min_reads: int = 0     # >0 (barcodes mode): error_fix rescues
+                                     # error-band k-mers with at least this
+                                     # many raw occurrences in the lane
 
 
 class Engine:
@@ -79,12 +93,9 @@ class Engine:
 
     def __init__(self, cfg: EngineConfig, device, log=sys.stderr):
         if cfg.mode not in minimizer.KERNEL_MODES:
-            raise NotImplementedError(
-                f"sketch mode {cfg.mode!r} is not ported yet (the CUDA "
-                f"kernel has {sorted(minimizer.KERNEL_MODES)})")
-        if cfg.count_mode != "barcodes":
-            raise NotImplementedError(
-                f"count mode {cfg.count_mode!r} is not ported yet")
+            raise ValueError(f"unknown sketch mode {cfg.mode!r}")
+        if cfg.count_mode not in ("barcodes", "occurrences"):
+            raise ValueError(f"unknown count mode {cfg.count_mode!r}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.table: Optional[st.SortedTable] = None
@@ -119,15 +130,17 @@ class Engine:
     # -- batching --------------------------------------------------------------
 
     def _spans(self, fqb: Fqb):
-        """Barcode-sorted read order and batch spans (a, b) of at most
+        """Barcode-sorted read order and batch spans (a, b, group) of at most
         ``batch_reads`` reads, boundaries aligned so one barcode never
-        straddles a batch."""
+        straddles a batch; a barcode with more reads than a batch streams
+        alone as consecutive spans sharing a group id (None otherwise)."""
         bsz = self.cfg.batch_reads
         order = np.argsort(fqb.barcode_ids, kind="stable")
         bc_all = fqb.barcode_ids[order]
         n = len(bc_all)
         spans = []
         i = 0
+        gid = 0
         while i < n:
             j = min(i + bsz, n)
             if j < n:
@@ -138,11 +151,14 @@ class Engine:
                 if jb > i:
                     j = jb
                 elif bc_all[j] != -1 and bc_all[i] == bc_all[j]:
-                    raise NotImplementedError(
-                        f"barcode {int(bc_all[i])} has more reads than a batch "
-                        f"({bsz}); oversized barcodes are not ported yet "
-                        "(raise --batchReads)")
-            spans.append((i, j))
+                    # oversized barcode: stream it alone as a tagged group
+                    e = i + np.searchsorted(bc_all[i:], bc_all[i], "right")
+                    gid += 1
+                    spans.extend((a, min(a + bsz, e), gid)
+                                 for a in range(i, e, bsz))
+                    i = e
+                    continue
+            spans.append((i, j, None))
             i = j
         return order, spans
 
@@ -166,21 +182,29 @@ class Engine:
 
     def _compact_rows(self, P: int) -> int:
         """Kernel compaction width C (0 = dense rows): twice the expected
-        per-read minimizer count plus slack, rounded to 8.  Per-read counts
-        concentrate hard around 2P/(w+1); overflow is counted exactly and
+        per-read emission count plus slack, rounded to 8 (minimizer:
+        2P/(w+1); modimizer: P/m; syncmer: P/(k-s+1)).  Per-read counts
+        concentrate hard around their mean; overflow is counted exactly and
         raises.  kmer mode emits every position: nothing to compact."""
-        spec = self.cfg.spec
-        if self.cfg.mode != "minimizer" or spec.w <= 1:
+        cfg = self.cfg
+        spec = cfg.spec
+        if cfg.mode == "minimizer" and spec.w > 1:
+            expected = 2 * P // (spec.w + 1) + 1
+        elif cfg.mode == "modimizer":
+            expected = P // max(cfg.modulus or spec.w, 1) + 1
+        elif cfg.mode == "syncmer" and cfg.syncmer_s:
+            expected = P // (spec.k - cfg.syncmer_s + 1) + 1
+        else:
             return 0
-        expected = 2 * P // (spec.w + 1) + 1
         c = ((2 * expected + 16 + 7) // 8) * 8
         return c if c < P else 0
 
     def _batch_slots(self, m: int, P: int, n_flat: int) -> int:
-        """Distinct keys one batch of ``m`` reads may buffer: the expected
-        emission total plus a quarter and 4096 (per-read counts are
-        independent, so the total concentrates around its mean); overflow is
-        counted exactly and raises."""
+        """Distinct keys one batch of ``m`` reads may buffer.  Minimizer
+        mode: the expected emission total plus a quarter and 4096 (per-read
+        counts are independent, so the total concentrates around its mean);
+        other modes: the full flat width.  Overflow is counted exactly and
+        raises."""
         spec = self.cfg.spec
         if self.cfg.mode != "minimizer" or spec.w <= 1:
             return n_flat
@@ -190,21 +214,22 @@ class Engine:
 
     def _batches(self, fqb: Fqb):
         """Yield the flat (hashes, barcodes) emissions of every batch, its
-        number of reads, and its count of emissions past the kernel's
-        compaction width (a device scalar)."""
+        number of reads, its count of emissions past the kernel's
+        compaction width (a device scalar) and its group id."""
         (packed, lengths, bcs, nmask), spans = self._lane(fqb)
-        spec = self.cfg.spec
-        C = self._compact_rows(self._read_len - spec.k + 1)
-        for a, b in spans:
+        cfg = self.cfg
+        C = self._compact_rows(self._read_len - cfg.spec.k + 1)
+        for a, b, gid in spans:
             ln = lengths[a:b]
             codes = unpack_2bit_torch(packed[a:b], self._read_len,
                                       None if nmask is None else nmask[a:b])
-            h, _, emit, over = minimizer.sketch(spec, codes, ln,
-                                                mode=self.cfg.mode,
-                                                compact_to=C)
+            h, _, emit, over = minimizer.sketch(
+                cfg.spec, codes, ln, mode=cfg.mode, compact_to=C,
+                m=cfg.modulus, syncmer_s=cfg.syncmer_s)
             keyed = torch.where(emit, h, INT64_MAX)
             flat_bc = bcs[a:b, None].expand(-1, h.shape[1])
-            yield keyed.reshape(-1), flat_bc.reshape(-1), b - a, over.sum()
+            yield (keyed.reshape(-1), flat_bc.reshape(-1), b - a, over.sum(),
+                   gid)
 
     def _raise_overflow(self, what: str):
         raise RuntimeError(
@@ -214,30 +239,57 @@ class Engine:
     # -- count pass --------------------------------------------------------------
 
     def count(self, fqb: Fqb) -> None:
-        """Count pass: every batch is sketched, pre-reduced to (hash,
-        distinct-barcode count) pairs and buffered into the count table."""
+        """Count pass: every batch is sketched, pre-reduced and buffered into
+        the count table.  Barcodes mode keys on (hash, distinct-barcode
+        count) pairs; an oversized barcode's batches dedup through a side
+        table, so each of its distinct hashes enters once.  Occurrences mode
+        counts every emission, reads without a barcode included, and its
+        groups fold into the normal stream."""
         self._read_len = fqb.read_len
         P = self._read_len - self.cfg.spec.k + 1
         C = self._compact_rows(P)
         bsz = self.cfg.batch_reads
         cap = 1 << self.cfg.table_bits
-        buf_cap = max(cap, self._FLUSH_BATCHES
-                      * self._batch_slots(bsz, P, bsz * (C or P)))
+        full = self._batch_slots(bsz, P, bsz * (C or P))
+        buf_cap = max(cap, self._FLUSH_BATCHES * full)
         if self.table is None:
             self.table = st.make_sorted_table(cap, buf_cap, self.device)
         self.table = st.grow_buf(self.table, buf_cap)
+        occurrences = self.cfg.count_mode == "occurrences"
         overflow = torch.zeros((), dtype=torch.int64, device=self.device)
-        for flat_h, flat_bc, m, sketch_over in self._batches(fqb):
+        group, gtab = None, None
+        for flat_h, flat_bc, m, sketch_over, gid in self._batches(fqb):
+            if group is not None and gid != group:
+                self._finish_group(gtab)
+                group, gtab = None, None
             slots = self._batch_slots(m, P, flat_h.shape[0])
-            keys, wts, over = st.dedup_pairs_weighted(flat_h, flat_bc, slots)
+            if occurrences:
+                keys, wts, over = st.dedup_weighted(flat_h, slots)
+            else:
+                keys, wts, over = st.dedup_pairs_weighted(flat_h, flat_bc,
+                                                          slots)
             overflow += sketch_over + over
-            self.table = st.append_pairs(self.table, keys, wts)
+            if gid is None or occurrences:
+                self.table = st.append_pairs(self.table, keys, wts)
+                continue
+            if gtab is None:
+                group = gid
+                gtab = st.make_sorted_table(2 * full, 2 * full, self.device)
+            gtab = st.append_pairs(gtab, keys, wts)
+        if gtab is not None:
+            self._finish_group(gtab)
         self.table = st.flush_grow(self.table)
         if int(overflow):
             self._raise_overflow("count")
         self.n_reads_counted += int((fqb.lengths > 0).sum())
         self.timer.stage(f"count: {self.n_reads_counted} reads, "
                          f"{self.table.n_filled} kmers")
+
+    def _finish_group(self, gtab: st.SortedTable) -> None:
+        """Move an oversized barcode's side table into the count table: each
+        distinct hash of the group counts one barcode."""
+        keys, _ = st.compact(st.flush_grow(gtab))
+        self.table = st.merge_counts(self.table, keys, torch.ones_like(keys))
 
     def _flushed(self) -> st.SortedTable:
         if self.table is None:
@@ -265,6 +317,54 @@ class Engine:
         hist = self.histogram(max_count)
         for c in np.nonzero(hist)[0]:
             out.write(f"{c}\t{int(hist[c])}\n")
+
+    def _occurrence_counts(self, fqb: Fqb):
+        """Sorted (hashes, raw occurrence counts) of the lane under the
+        current sketch parameters: a second count pass in occurrences mode
+        that leaves the count table and ``n_reads_counted`` as they were."""
+        saved = (self.table, self.n_reads_counted, self.cfg.count_mode)
+        self.table = None
+        try:
+            self.cfg.count_mode = "occurrences"
+            self.count(fqb)
+            return st.compact(self._flushed())
+        finally:
+            self.table, self.n_reads_counted, self.cfg.count_mode = saved
+
+    def error_fix(self, max_count: int = 1, fqb: Optional[Fqb] = None,
+                  min_reads: int = 0) -> None:
+        """Error-band correction (``--errorFix``): drop k-mers with count <=
+        ``max_count``.  With ``min_reads > 0`` (or the config's
+        ``error_fix_min_reads``), loaded reads and barcodes count mode,
+        error-band k-mers with at least ``min_reads`` raw occurrences in the
+        lane are rescued (kept): a sequencing error is read-unique, a real
+        low-coverage k-mer recurs across its molecule's reads."""
+        min_reads = min_reads or self.cfg.error_fix_min_reads
+        t = self._flushed()
+        before = t.n_filled
+        rescued = 0
+        if min_reads > 0 and fqb is not None \
+                and self.cfg.count_mode == "barcodes":
+            occ_h, occ_c = self._occurrence_counts(fqb)
+            self.table, rescued = st.prune_rescue(
+                self._flushed(), occ_h, occ_c, max_count, min_reads)
+        else:
+            if min_reads > 0:
+                why = ("no reads are loaded (rescue needs a second pass "
+                       "over the lane; --errorFixReads after --readHash "
+                       "alone cannot run it)" if fqb is None else
+                       f"count_mode={self.cfg.count_mode!r} has no "
+                       "barcode-band semantics to rescue against")
+                raise RuntimeError(
+                    f"errorFix rescue (min_reads={min_reads}) cannot be "
+                    f"honored: {why}; rerun with reads loaded in barcodes "
+                    "mode, or drop --errorFixReads for drop-only pruning")
+            self.table = st.prune(t, max_count + 1)
+        self.timer.stage(
+            f"errorFix: dropped {before - self.table.n_filled} kmers with "
+            f"count <= {max_count}" + (f", rescued {rescued} with >= "
+                                       f"{min_reads} occurrences"
+                                       if rescued else ""))
 
     def filter(self, min_count: int = 0, max_count: int = 0) -> None:
         """Keep the k-mers whose count lies in the band [lo, hi]."""
@@ -295,7 +395,8 @@ class Engine:
         pt = st.make_sorted_table(cap, max(cap, self._FLUSH_BATCHES * full),
                                   self.device)
         overflow = torch.zeros((), dtype=torch.int64, device=self.device)
-        for flat_h, flat_bc, m, sketch_over in self._batches(fqb):
+        # group tags do not matter here: the pair table dedups globally
+        for flat_h, flat_bc, m, sketch_over, _ in self._batches(fqb):
             if hb:
                 ok = (flat_h != INT64_MAX) & (flat_bc >= 0)
                 raw = torch.where(ok, (flat_bc << hb) | flat_h, INT64_MAX)
@@ -392,6 +493,80 @@ class Engine:
             f"{c}\t{h:x}\t{l}\n" for c, h, l in
             zip(inc.code_of_pair().tolist(), hashes.tolist(),
                 self.cluster_labels.tolist())))
+
+    # -- checkpoint / resume ---------------------------------------------------
+
+    def save(self, path) -> None:
+        """Write the analysis state (count table, retained band, incidence,
+        cluster labels, split) as the JAX package's ``.npz`` checkpoint:
+        uint64 hashes, uint32 counts, int64 offsets, int32 ids and labels,
+        and a ``meta`` JSON with version 2."""
+        cfg = self.cfg
+        meta = {"spec": json.loads(cfg.spec.to_json()), "mode": cfg.mode,
+                "count_mode": cfg.count_mode, "n_reads": self.n_reads_counted,
+                "version": 2}
+        h, c = st.compact(self._flushed())
+        parts = {"hashes": convert.keys_to_numpy(h),
+                 "counts": convert.to_numpy(c, np.uint32, "counts")}
+        if self.retained_hashes is not None:
+            parts["retained"] = convert.keys_to_numpy(self.retained_hashes)
+            rc = self.retained_counts
+            parts["retained_counts"] = (
+                np.zeros(0, np.uint32) if rc is None
+                else convert.to_numpy(rc, np.uint32, "retained counts"))
+        if self.inc is not None:
+            parts.update(convert.incidence_to_numpy(self.inc, "inc_"))
+            meta["inc_shape"] = [self.inc.n_kmers, self.inc.n_codes]
+        if self.cluster_labels is not None:
+            parts["cluster_labels"] = convert.to_numpy(
+                self.cluster_labels, np.int32, "cluster labels")
+        if self.split_inc is not None:
+            parts.update(convert.incidence_to_numpy(self.split_inc, "split_"))
+            parts["split_origin"] = convert.to_numpy(
+                self.split_origin, np.int32, "split origin")
+            meta["split_shape"] = [self.split_inc.n_kmers,
+                                   self.split_inc.n_codes]
+        np.savez(path, meta=np.frombuffer(json.dumps(meta).encode(), np.uint8),
+                 **parts)
+
+    def load(self, path) -> None:
+        """Restore a checkpoint written by either package, replacing the
+        current state (never merging into it).  Raises on a spec mismatch."""
+        path = str(path)
+        z = np.load(path if path.endswith(".npz") else path + ".npz")
+        meta = json.loads(bytes(z["meta"]).decode())
+        spec = HashSpec(**meta["spec"])
+        if spec != self.cfg.spec:
+            raise ValueError(f"hash file spec {spec} != engine spec "
+                             f"{self.cfg.spec} (tables are only comparable "
+                             "with identical k/w/seed)")
+        dev = self.device
+        h = convert.keys_from_numpy(z["hashes"], dev)
+        c = torch.from_numpy(z["counts"].astype(np.int32)).to(dev)
+        cap = 1 << self.cfg.table_bits
+        self.table = st.merge_counts(st.make_sorted_table(cap, cap, dev), h, c)
+        self.n_reads_counted = int(meta["n_reads"])
+        self.retained_hashes = (convert.keys_from_numpy(z["retained"], dev)
+                                if "retained" in z else None)
+        self.retained_counts = (
+            torch.from_numpy(z["retained_counts"].astype(np.int32)).to(dev)
+            if "retained_counts" in z and len(z["retained_counts"]) else None)
+        self.inc = None  # also clears the labels and the split
+        if "inc_code_offsets" in z:
+            self.inc = convert.incidence_from_npz(z, "inc_",
+                                                  meta["inc_shape"], dev)
+            if "cluster_labels" in z:
+                self._set_labels(torch.from_numpy(
+                    z["cluster_labels"].astype(np.int64)).to(dev))
+        if "split_code_offsets" in z:
+            self.split_inc = convert.incidence_from_npz(
+                z, "split_", meta["split_shape"], dev)
+            self.split_origin = torch.from_numpy(
+                z["split_origin"].astype(np.int64)).to(dev)
+        self.timer.stage(f"load: {len(z['hashes'])} kmers"
+                         + (f", {self.inc.n_pairs} pairs" if self.inc else "")
+                         + (", clusters" if self.cluster_labels is not None
+                            else ""))
 
 
 def _write_report_lines(out, n_codes, n_kmers_per_code, n_clusters,

@@ -16,8 +16,9 @@ and serves CPU tensors.  ``LAUNCHES`` counts kernel launches and
 
 The kernel is built with ``nvcc`` for ``sm_90a`` into ``_build/`` (ignored by
 git) at first use, keyed by a hash of the source, and loaded with ctypes.
-Kernel modes: ``minimizer`` and ``kmer``; other modes raise
-``NotImplementedError`` on CUDA.
+It runs every mode of ``seqhash.sketch`` (``KERNEL_MODES``) for any batch
+size and any ``w``: minimizer mode with ``w`` above the kernel's 64-entry
+thread-local deque gets a scratch ring in device memory from the wrapper.
 """
 
 from __future__ import annotations
@@ -37,13 +38,13 @@ from ..core import seqhash
 from ..hashspec import HashSpec
 
 __all__ = ["sketch", "sketch_plain", "build", "LAUNCHES", "PLAIN_CALLS",
-           "KERNEL_MODES", "MAX_W"]
+           "KERNEL_MODES"]
 
 LAUNCHES = 0
 PLAIN_CALLS = 0
 
-KERNEL_MODES = {"kmer": 0, "minimizer": 1}
-MAX_W = 64  # the kernel's deque ring (csrc/minimizer.cu kRing)
+KERNEL_MODES = {"kmer": 0, "minimizer": 1, "modimizer": 2, "syncmer": 3}
+LOCAL_RING = 64  # csrc/minimizer.cu kLocalRing: larger w take a scratch ring
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "minimizer.cu"
@@ -86,11 +87,9 @@ def build() -> ctypes.CDLL:
                 os.remove(tmp)
     lib = ctypes.CDLL(str(so))
     fn = lib.h10x_sketch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    ptr, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
+    fn.argtypes = [ptr, ptr, i32, i32, i32, i32, u64, i32, i32, u64, i32,
+                   u64, i32, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr]
     fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -126,48 +125,63 @@ def sketch_plain(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor,
 
 
 def sketch(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor,
-           mode: str = "minimizer", compact_to: int = 0):
+           mode: str = "minimizer", compact_to: int = 0, m: int = 0,
+           syncmer_s: int = 0):
     """Sketch a batch: ``codes (B, L) uint8``, ``lengths (B,) int32``.
 
-    Same outputs as :func:`sketch_plain`.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel on the current stream or raise."""
+    Same arguments and outputs as :func:`sketch_plain`: ``m`` is the
+    modimizer modulus (0 = ``w``), ``syncmer_s`` the syncmer s-mer size.
+    CPU tensors take the plain version; CUDA tensors launch the kernel on the
+    current stream or raise ``ValueError`` on what it does not take."""
     global LAUNCHES, PLAIN_CALLS
     if codes.device.type == "cpu":
         PLAIN_CALLS += 1
         return sketch_plain(spec, codes, lengths, mode=mode,
-                            compact_to=compact_to)
+                            compact_to=compact_to, m=m, syncmer_s=syncmer_s)
     if codes.device.type != "cuda":
         raise ValueError(f"sketch: unsupported device {codes.device}")
     if mode not in KERNEL_MODES:
-        raise NotImplementedError(
-            f"sketch mode {mode!r} has no CUDA kernel yet (kernel modes: "
-            f"{sorted(KERNEL_MODES)})")
+        raise ValueError(f"unknown sketch mode {mode!r} (kernel modes: "
+                         f"{sorted(KERNEL_MODES)})")
     if codes.dtype != torch.uint8 or codes.dim() != 2:
         raise ValueError("codes must be a (B, L) uint8 tensor")
     if lengths.dtype != torch.int32 or lengths.shape != codes.shape[:1]:
         raise ValueError("lengths must be a (B,) int32 tensor")
     if lengths.device != codes.device:
         raise ValueError("codes and lengths must be on one device")
-    if mode == "minimizer" and spec.w > MAX_W:
-        raise ValueError(f"the CUDA sketch kernel supports w <= {MAX_W}")
     if compact_to < 0:
         raise ValueError("compact_to must be >= 0")
     B, L = codes.shape
     P = L - spec.k + 1
     if P < 1:
         raise ValueError(f"read length {L} < k {spec.k}")
+    modulus = (m or spec.w) if mode == "modimizer" else 0
+    if mode == "modimizer" and not 1 <= modulus < (1 << 63):
+        raise ValueError(f"modimizer modulus must be in [1, 2^63), got {modulus}")
+    sub = seqhash.smer_spec(spec, syncmer_s) if mode == "syncmer" else None
     codes = codes.contiguous()
     lengths = lengths.contiguous()
+    dev = codes.device
     R = compact_to or P
-    out_h = torch.empty((B, R), dtype=torch.int64, device=codes.device)
-    out_f = torch.empty((B, R), dtype=torch.uint8, device=codes.device)
-    over = torch.empty(B, dtype=torch.int32, device=codes.device)
+    out_h = torch.empty((B, R), dtype=torch.int64, device=dev)
+    out_f = torch.empty((B, R), dtype=torch.uint8, device=dev)
+    over = torch.empty(B, dtype=torch.int32, device=dev)
+    ring_h = ring_pf = None
+    ring = 0
+    if mode == "minimizer" and spec.w > LOCAL_RING:
+        ring = 1 << (spec.w - 1).bit_length()  # a power of two >= w
+        ring_h = torch.empty((ring, B), dtype=torch.int64, device=dev)
+        ring_pf = torch.empty((ring, B), dtype=torch.int32, device=dev)
     lib = build()
-    stream = torch.cuda.current_stream(codes.device).cuda_stream
-    rc = lib.h10x_sketch(codes.data_ptr(), lengths.data_ptr(), B, L, spec.k,
-                         spec.w, spec.factor1, spec.shift1, KERNEL_MODES[mode],
-                         compact_to, out_h.data_ptr(), out_f.data_ptr(),
-                         over.data_ptr(), stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.h10x_sketch(
+        codes.data_ptr(), lengths.data_ptr(), B, L, spec.k, spec.w,
+        spec.factor1, spec.shift1, KERNEL_MODES[mode], modulus,
+        syncmer_s if sub else 0, sub.factor1 if sub else 0,
+        sub.shift1 if sub else 0, compact_to,
+        ring_h.data_ptr() if ring else None,
+        ring_pf.data_ptr() if ring else None, max(ring - 1, 0),
+        out_h.data_ptr(), out_f.data_ptr(), over.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"sketch kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

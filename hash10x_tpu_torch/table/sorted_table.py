@@ -12,6 +12,8 @@
   re-homes the table at the power-of-two capacity that keeps occupancy under
   ``load``: it never spills.  The real-key count is read back at every flush
   (one device sync) and kept exact in ``n_filled``.
+* ``merge_counts`` merges outside (key, count) pairs the same way;
+  ``prune`` and ``prune_rescue`` drop the error band (``Engine.error_fix``).
 
 Per-batch pre-reductions have a fixed slot count; distinct keys beyond it
 are counted exactly in an ``overflow`` tensor that callers check and raise
@@ -28,8 +30,9 @@ import torch
 from .. import INT64_MAX
 
 __all__ = ["SortedTable", "make_sorted_table", "append", "append_pairs",
-           "flush_grow", "grow_buf", "segment_sum_sorted", "dedup_weighted",
-           "dedup_pairs_weighted", "count_histogram", "compact", "lookup_ids"]
+           "flush_grow", "grow_buf", "merge_counts", "segment_sum_sorted",
+           "dedup_weighted", "dedup_pairs_weighted", "count_histogram",
+           "compact", "prune", "prune_rescue", "lookup_ids"]
 
 
 @dataclasses.dataclass
@@ -87,6 +90,17 @@ def flush_grow(t: SortedTable, load: float = 0.6) -> SortedTable:
     hashes[:n] = uh
     counts[:n] = uw.to(torch.int32)
     return SortedTable(hashes, counts, t.buf, t.bufw, 0, n)
+
+
+def merge_counts(t: SortedTable, other_h: torch.Tensor,
+                 other_w: torch.Tensor) -> SortedTable:
+    """Merge outside (key, count) pairs (a loaded checkpoint, an oversized
+    barcode's side table) into the table: counts of equal keys add, and the
+    capacity grows as in :func:`flush_grow`.  The append buffer is kept."""
+    t = flush_grow(t)
+    merged = flush_grow(dataclasses.replace(
+        t, buf=other_h, bufw=other_w.to(torch.int32), buf_n=other_h.shape[0]))
+    return dataclasses.replace(merged, buf=t.buf, bufw=t.bufw)
 
 
 def grow_buf(t: SortedTable, buf_capacity: int) -> SortedTable:
@@ -209,6 +223,42 @@ def compact(t: SortedTable, min_count: int = 0, max_count: int = 0
     if max_count:
         keep &= c <= max_count
     return h[keep], c[keep]
+
+
+def _with_keys(t: SortedTable, keep: torch.Tensor) -> SortedTable:
+    """The flushed table with only the ``keep`` entries of its first
+    ``n_filled`` slots (order kept), at the same capacity."""
+    h = t.hashes[:t.n_filled][keep]
+    n = h.shape[0]
+    hashes = torch.full_like(t.hashes, INT64_MAX)
+    counts = torch.zeros_like(t.counts)
+    hashes[:n] = h
+    counts[:n] = t.counts[:t.n_filled][keep]
+    return SortedTable(hashes, counts, t.buf, t.bufw, 0, n)
+
+
+def prune(t: SortedTable, min_count: int) -> SortedTable:
+    """Drop the k-mers with count < ``min_count``.  Flush first."""
+    if t.buf_n:
+        raise ValueError("prune requires a flushed table")
+    return _with_keys(t, t.counts[:t.n_filled] >= min_count)
+
+
+def prune_rescue(t: SortedTable, occ_h: torch.Tensor, occ_c: torch.Tensor,
+                 max_count: int, min_reads: int) -> Tuple[SortedTable, int]:
+    """Drop the k-mers with count <= ``max_count`` unless their raw
+    occurrence count (``occ_h`` ascending, ``occ_c``) is >= ``min_reads``.
+    Returns (table, number rescued).  Flush first."""
+    if t.buf_n:
+        raise ValueError("prune_rescue requires a flushed table")
+    if occ_h.shape[0] == 0:  # nothing can be rescued
+        return prune(t, max_count + 1), 0
+    c = t.counts[:t.n_filled]
+    idx, found = lookup_ids(occ_h, t.hashes[:t.n_filled])
+    occ = torch.where(found, occ_c[idx.clamp(min=0)], 0)
+    band = c <= max_count
+    rescued = band & (c > 0) & (occ >= min_reads)
+    return _with_keys(t, ~band | rescued), int(rescued.sum())
 
 
 def lookup_ids(hashes: torch.Tensor, queries: torch.Tensor

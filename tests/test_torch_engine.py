@@ -103,17 +103,25 @@ def test_count_with_n_bases_short_reads_and_bad_barcodes(rng):
 
 
 def test_not_ported_paths_raise(rng):
+    """Every sketch and count mode of the JAX engine is ported: unknown
+    modes raise ValueError, and the paths that raised NotImplementedError
+    before (modimizer, occurrences mode, a barcode with more reads than a
+    batch) now run."""
     spec = HashSpec(k=21, w=11, seed=17)
-    for cfg in (EngineConfig(spec=spec, mode="modimizer"),
-                EngineConfig(spec=spec, count_mode="occurrences")):
-        with pytest.raises(NotImplementedError):
+    for cfg in (EngineConfig(spec=spec, mode="bogus"),
+                EngineConfig(spec=spec, count_mode="bogus")):
+        with pytest.raises(ValueError, match="unknown"):
             Engine(cfg, "cpu", log=None)
     codes = rng.integers(0, 4, size=(40, 60)).astype(np.uint8)
     fqb = FB.from_read_batch(ReadBatch(codes, np.full(40, 60, np.int32),
                                        np.full(40, 5, np.uint32)))
-    eng = Engine(EngineConfig(spec=spec, batch_reads=16), "cpu", log=None)
-    with pytest.raises(NotImplementedError, match="oversized"):
+    for cfg in (EngineConfig(spec=spec, batch_reads=16),
+                EngineConfig(spec=spec, batch_reads=16, mode="modimizer"),
+                EngineConfig(spec=spec, batch_reads=16,
+                             count_mode="occurrences")):
+        eng = Engine(cfg, "cpu", log=None)
         eng.count(fqb)
+        assert eng.n_reads_counted == 40 and eng.table.n_filled > 0
 
 
 def test_count_twice_accumulates_like_jax():

@@ -145,7 +145,7 @@ def test_default_device_is_cuda_and_never_falls_back():
         run(["--simulate", SIM, "--hashInfo"], io.StringIO(), io.StringIO())
 
 
-@pytest.mark.parametrize("flag", ["--modimizer", "--writeHash", "--shards",
+@pytest.mark.parametrize("flag", ["--maxFriends", "--profile", "--shards",
                                   "--cribReport"])
 def test_unported_flags_exit(flag):
     with pytest.raises(SystemExit, match="not yet ported"):

@@ -81,7 +81,8 @@ def test_kmer_mode_matches_jnp(rng):
 @pytest.mark.parametrize("mode,kw", [("modimizer", {"m": 7}),
                                      ("syncmer", {"syncmer_s": 11})])
 def test_plain_modes_match_jnp(rng, mode, kw):
-    """The modimizer and syncmer masks (plain form; no CUDA kernel yet)."""
+    """The modimizer and syncmer masks (plain form; tests/test_torch_modes.py
+    holds the kernel's plain version to the Pallas kernel in these modes)."""
     codes, lengths = _lane(rng, 21, 11)
     h2, _, e2 = (x.numpy() for x in
                  S.sketch(HashSpec(k=21, w=11, seed=17), _torch(codes),
