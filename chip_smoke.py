@@ -15,7 +15,9 @@ Phases (any failure exits non-zero):
                 w = 130 = P, and modimizer (m = w, 7, 2, 65521 at k = 21, 16,
                 31) and syncmer (s = 11, 5, 1, 20 at k = 21; s = 30 at k = 31)
                 modes, dense and compacted; kernel and plain times of each
-                mode at B=4096, L=150
+                mode at B=4096, L=150; and the crib's shape: kmer mode, dense,
+                L = 32,768 with N blocks, rows shorter than k and one of
+                exactly k bases, timed per row group of the crib's height
   4. main     - the 800k-read / 50k-barcode lane of bench.py as an .fqb,
                 through hash10x_tpu_torch.cli.main on CUDA; every batch must go
                 through the kernel (launch counter > 0, plain calls == 0)
@@ -37,6 +39,20 @@ Phases (any failure exits non-zero):
  10. cpu2     - CUDA and CPU byte-identical on the 20k lane with one
                 3,000-read barcode under --batchReads 1024, for --syncmer 11,
                 --modimizer and --countMode occurrences
+ 11. crib     - a diploid 800k-read / 50k-barcode lane from io/sim (two 100 Mb
+                haplotypes written as FASTA) through --codeClusters
+                --cribBuild h1.fa h2.fa --cribReport on CUDA: every genome
+                row goes through the kernel's dense kmer mode (launches during
+                cribBuild > 0, plain calls 0), overall purity >= 0.85
+ 12. legacy   - the 800k lane on CUDA with --clusterMode pair --minShare 2 and
+                with --maxFriends 256, each through the report
+ 13. cpu3     - CUDA and CPU byte-identical on the 20k lane of phase 6 for
+                pair mode, capped friend and the crib (2 Mb haplotypes)
+ 14. observe  - --metrics --devMem --profile on the 20k lane (every JSONL line
+                has hbm_in_use_mb, the trace names the sketch kernel); the
+                800k lane written as FASTQ and read with --readFastq through
+                the native loader: stdout byte-identical to phase 4's, load
+                walls of the native loader and the numpy parser
 The last two lines of stdout before the result are a JSON line describing
 the kernels and the card's name and power limit; the last line is the JSON
 result {"ok": true, "device": {...}}.
@@ -58,6 +74,7 @@ READ_LEN = 150
 N_READS, N_CODES = 800_000, 50_000
 SUB_CODES = 3_125  # 50,000 reads
 PARITY_B = 4096
+CRIB_GENOME = 100_000_000  # bases per haplotype of the phase-11 lane
 
 
 def fail(msg: str) -> None:
@@ -138,16 +155,20 @@ def phase_parity(torch, MK, HashSpec, compact_rows):
 
 
 def time_sketch(torch, MK, rng, spec, kw, n=50):
-    """Kernel and plain ms per B=4096, L=150 batch: CUDA events over n
-    launches after 3 warm-ups, in the order kernel, plain, plain, kernel."""
+    """Kernel and plain ms per B=4096, L=150 batch."""
     dev = torch.device("cuda")
     codes, lengths = _batch(rng, PARITY_B, READ_LEN, spec.k, spec.w)
     lengths[:] = READ_LEN
     c = torch.from_numpy(codes).to(dev)
     ln = torch.from_numpy(lengths).to(dev)
+    return time_kernel_plain(torch, MK, spec, c, ln, kw, n)
 
+
+def time_kernel_plain(torch, MK, spec, c, ln, kw, n, warm=3):
+    """Kernel and plain ms per call on (c, ln): CUDA events over n calls
+    after ``warm`` warm-ups, in the order kernel, plain, plain, kernel."""
     def timed(fn):
-        for _ in range(3):
+        for _ in range(warm):
             fn(spec, c, ln, **kw)
         torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
@@ -549,6 +570,304 @@ def phase_cuda_vs_cpu_modes(run, tmp):
               f"({outs[0][0].count(chr(10))} lines) and dumps byte-identical")
 
 
+CRIB_PARITY_B = 256
+
+
+def _genome_rows(rng, B, L, k):
+    """Crib-shaped rows: L = 32,768 genome bases with N blocks and scattered
+    Ns, a row shorter than k, an empty row, a row of exactly k bases, an
+    all-N row and ragged tails."""
+    codes = rng.integers(0, 4, size=(B, L)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.0005] = 4
+    for r in range(0, B, 3):                      # N blocks (gaps)
+        s = int(rng.integers(0, L - 3000))
+        codes[r, s:s + int(rng.integers(1, 3000))] = 4
+    lengths = np.full(B, L, np.int32)
+    lengths[1] = k - 1
+    lengths[2] = 0
+    lengths[3] = k
+    codes[3, :k] = rng.integers(0, 4, size=k)     # its one k-mer is valid
+    codes[4] = 4
+    lengths[5:40] = rng.integers(k, L, size=len(lengths[5:40]))
+    return codes, lengths
+
+
+def phase_crib_parity(torch, MK, HashSpec, crib_rows):
+    """The crib's route: kmer mode, dense, L = 32,768.  Kernel == plain bit
+    for bit on all four outputs; kernel and plain ms per row group of the
+    crib's CUDA height.  Returns (max_abs_err, ms, plain_ms)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 2)
+    spec = HashSpec(k=K, w=W, seed=SEED)
+    L = 1 << 15
+    codes, lengths = _genome_rows(rng, CRIB_PARITY_B, L, K)
+    c = torch.from_numpy(codes).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    got = MK.sketch(spec, c, ln, mode="kmer")
+    torch.cuda.synchronize()
+    ref = MK.sketch_plain(spec, c, ln, mode="kmer")
+    torch.cuda.synchronize()
+    err = float((got[0] - ref[0]).abs().max())
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    n_valid = int(got[2].sum())
+    print(f"parity kmer dense B={CRIB_PARITY_B} L={L} k={K} (N blocks, "
+          f"rows shorter than k, one row of exactly k): "
+          f"{'equal' if same else 'DIFFERENT'} (valid {n_valid}, exactly-k "
+          f"row {int(got[2][3].sum())})")
+    if not same or int(got[2][3].sum()) != 1 or int(got[2][1].sum()):
+        fail("kernel != plain in kmer mode at L = 32,768")
+    codes, lengths = _genome_rows(rng, crib_rows, L, K)
+    lengths[:] = L
+    c = torch.from_numpy(codes).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    ms, plain_ms = time_kernel_plain(torch, MK, spec, c, ln,
+                                     dict(mode="kmer"), n=3, warm=1)
+    print(f"sketch kmer dense B={crib_rows} L={L} k={K} (one crib row "
+          f"group): kernel {ms:.4f} ms/group, plain {plain_ms:.4f} ms/group "
+          f"(CUDA events, mean of 2x3 calls each)")
+    del c, ln, got, ref
+    torch.cuda.empty_cache()
+    return err, ms, plain_ms
+
+
+class StageLog(io.StringIO):
+    """A stderr stream that records the kernel counters after each stage
+    line, so launches inside one stage of a CLI run can be read off."""
+
+    def __init__(self, MK):
+        super().__init__()
+        self.MK = MK
+        self.marks = []   # (stage label, launches, plain calls)
+
+    def write(self, text):
+        if text.startswith("["):
+            self.marks.append((text[1:text.index("]")], self.MK.LAUNCHES,
+                               self.MK.PLAIN_CALLS))
+        return super().write(text)
+
+    def launches_in(self, prefix):
+        for i, (label, n, _) in enumerate(self.marks):
+            if label.startswith(prefix):
+                return n - (self.marks[i - 1][1] if i else 0)
+        fail(f"no {prefix} stage line")
+
+
+def write_fasta(path, name, codes):
+    from hash10x_tpu_torch.core.encode import codes_to_ascii
+    with open(path, "wb") as f:
+        f.write(b">" + name + b"\n" + codes_to_ascii(codes) + b"\n")
+
+
+def phase_crib(torch, MK, run, tmp):
+    """Phase 11: the diploid lane through the crib on CUDA."""
+    from hash10x_tpu_torch.io.fqb import from_read_batch, save_fqb
+    from hash10x_tpu_torch.io.sim import SimConfig, simulate
+    t0 = time.monotonic()
+    sim = simulate(SimConfig(genome_len=CRIB_GENOME, n_barcodes=N_CODES,
+                             molecules_per_barcode=1, molecule_len=30_000,
+                             reads_per_molecule=N_READS // N_CODES,
+                             read_len=READ_LEN, het_rate=0.001))
+    lane = os.path.join(tmp, "diploid.fqb")
+    save_fqb(lane, from_read_batch(sim.reads))
+    fas = [os.path.join(tmp, f"h{i + 1}.fa") for i in range(2)]
+    write_fasta(fas[0], b"hap1", sim.genome)
+    write_fasta(fas[1], b"hap2", sim.genome_hap1)
+    n_het = int((sim.genome != sim.genome_hap1).sum())
+    del sim
+    print(f"crib lane: {N_READS} reads, {N_CODES} barcodes, two "
+          f"{CRIB_GENOME / 1e6:g} Mb haplotypes with {n_het} het sites "
+          f"(built and written in "
+          f"{time.monotonic() - t0:.1f} s)")
+    argv = ["-k", str(K), "-w", str(W), "-r", str(SEED), "-B", "22",
+            "--minCount", "2", "--maxCount", "64", "--friendShare", "8",
+            "--readFQB", lane, "--codeClusters", "--cribBuild", *fas,
+            "--cribReport"]
+    out, err = io.StringIO(), StageLog(MK)
+    torch.cuda.reset_peak_memory_stats()
+    MK.LAUNCHES = 0
+    MK.PLAIN_CALLS = 0
+    t0 = time.monotonic()
+    run(argv, out, err)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    crib_launches = err.launches_in("cribBuild")
+    plain = MK.PLAIN_CALLS
+    if crib_launches <= 0 or plain != 0:
+        fail(f"cribBuild: kernel launches {crib_launches}, plain calls "
+             f"{plain}")
+    text = out.getvalue()
+    totals = [l for l in text.splitlines() if l.startswith("crib totals")]
+    overall = [l for l in text.splitlines()
+               if l.startswith("crib overall purity")]
+    if not totals or not overall:
+        fail("crib report lacks its totals or its overall purity")
+    purity = float(overall[0].split()[3])
+    walls = stage_walls(err.getvalue())
+    print(f"crib: {totals[0]}; {overall[0]}; kernel launches in cribBuild "
+          f"{crib_launches} (row groups), plain calls 0; walls (s): "
+          f"cribBuild {walls['cribBuild']:.3f}, cribReport "
+          f"{walls['cribReport']:.3f}, count {walls['count']:.3f}, "
+          f"cluster {walls['cluster']:.3f}; {text.count(chr(10))} report "
+          f"lines; CLI wall {wall:.3f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    if purity < 0.85:
+        fail(f"crib overall purity {purity} < 0.85")
+    return crib_launches
+
+
+def molecules(err_text):
+    line = [l for l in err_text.splitlines() if l.startswith("[cluster:")][0]
+    return int(line.split()[1])
+
+
+def phase_legacy(torch, MK, run, lane):
+    """Phase 12: pair mode and capped friend mode on the 800k lane."""
+    for name, flags in (("pair", ["--clusterMode", "pair", "--minShare",
+                                  "2"]),
+                        ("capped friend", ["--maxFriends", "256"])):
+        argv = ["-k", str(K), "-w", str(W), "-r", str(SEED), "-B", "22",
+                "--minCount", "2", "--maxCount", "64", "--friendShare", "8",
+                *flags, "--readFQB", lane, "--codeClusters",
+                "--clusterSplit", "--clusterReport"]
+        out, err, eng, n, wall = run_counted(torch, MK, run, argv)
+        walls = stage_walls(err)
+        phases = {"count": walls["count"],
+                  "filter+incidence": walls["filter"] + walls["incidence"],
+                  "cluster": walls["cluster"], "split": walls["split"],
+                  "report": walls["report"]}
+        total = sum(phases.values())
+        print(f"legacy {name}: {molecules(err)} molecules over "
+              f"{eng.inc.n_codes} codes, {eng.inc.n_pairs} incidence pairs; "
+              f"kernel launches {n}, plain calls 0; walls (s): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+              + f"; sum {total:.3f}; CLI wall {wall:.3f}; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        if f"code {N_CODES - 1} nKmers" not in out:
+            fail(f"{name} lane output lacks report lines")
+        del eng
+
+
+def phase_cuda_vs_cpu_legacy(run, tmp):
+    """Phase 13: CUDA and CPU byte-identical on phase 6's 20k lane in pair
+    mode, capped friend mode and the crib (2 Mb haplotypes: phase 6's
+    genome and a copy with SNPs at a 0.001 rate)."""
+    rng = np.random.default_rng(SEED)
+    genome = rng.integers(0, 4, size=2_000_000).astype(np.uint8)  # phase 6's
+    hap2 = genome.copy()
+    snp = np.random.default_rng(SEED + 3).random(len(genome)) < 0.001
+    hap2[snp] = (hap2[snp] + 1) % 4
+    fas = [os.path.join(tmp, f"small_h{i}.fa") for i in (1, 2)]
+    write_fasta(fas[0], b"chr1", genome)
+    write_fasta(fas[1], b"chr1b", hap2)
+    lane = os.path.join(tmp, "ragged.fqb")
+    for name, flags in (
+            ("--clusterMode pair", ["--clusterMode", "pair", "--minShare",
+                                    "2", "--codeClusters"]),
+            ("--maxFriends 16", ["--maxFriends", "16", "--codeClusters"]),
+            ("crib", ["--codeClusters", "--cribBuild", *fas,
+                      "--cribReport"])):
+        outs = []
+        for dev in ("cuda", "cpu"):
+            out = io.StringIO()
+            dump = os.path.join(tmp, f"legacy_{dev}.clusters")
+            run(["--device", dev, "-k", str(K), "-w", str(W), "-r",
+                 str(SEED), "--batchReads", "1024", "--friendShare", "4",
+                 "--readFQB", lane, *flags, "--clusterSplit",
+                 "--clusterReport", "--writeClusters", dump], out,
+                io.StringIO())
+            with open(dump) as fh:
+                outs.append((out.getvalue(), fh.read()))
+        if outs[0] != outs[1]:
+            fail(f"CUDA and CPU runs differ with {name}")
+        print(f"cuda vs cpu {name}: 20k lane, stdout "
+              f"({outs[0][0].count(chr(10))} lines) and cluster dump "
+              "byte-identical")
+
+
+def write_fastq(path, reads, bc_ids):
+    """The lane as FASTQ: each read is its barcode id as a 16 bp 2-bit
+    barcode (base 0 in the top bits, so the sorted keys are the ids) and
+    its bases; fixed-length records, one vectorized write."""
+    n, L = reads.shape
+    shifts = 2 * (15 - np.arange(16))
+    bc = (bc_ids[:, None].astype(np.int64) >> shifts) & 3
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    seq = acgt[np.concatenate([bc, reads], axis=1)]
+    S = 16 + L
+    rec = np.empty((n, 3 + S + 3 + S + 1), np.uint8)
+    rec[:, :3] = np.frombuffer(b"@r\n", np.uint8)
+    rec[:, 3:3 + S] = seq
+    rec[:, 3 + S:6 + S] = np.frombuffer(b"\n+\n", np.uint8)
+    rec[:, 6 + S:6 + 2 * S] = ord("I")
+    rec[:, -1] = ord("\n")
+    rec.tofile(path)
+
+
+def phase_observe(torch, MK, run, tmp, lane_reads, bc_ids, main_text):
+    """Phase 14: the observability flags and the native FASTQ loader."""
+    import glob
+    from hash10x_tpu_torch.io import fqb as FB
+    from hash10x_tpu_torch.io import native_loader
+    metrics = os.path.join(tmp, "metrics.jsonl")
+    trace_dir = os.path.join(tmp, "trace")
+    err = io.StringIO()
+    run(["--metrics", metrics, "--devMem", "--profile", trace_dir,
+         "-k", str(K), "-w", str(W), "-r", str(SEED), "--batchReads",
+         "1024", "--friendShare", "4", "--readFQB",
+         os.path.join(tmp, "ragged.fqb"), "--hashInfo", "--codeClusters",
+         "--clusterSplit", "--clusterReport"], io.StringIO(), err)
+    with open(metrics) as f:
+        recs = [json.loads(line) for line in f]
+    if not recs or not all("hbm_in_use_mb" in r for r in recs):
+        fail("--metrics --devMem: a JSONL line lacks hbm_in_use_mb")
+    traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"--profile wrote {len(traces)} trace files")
+    with open(traces[0]) as f:
+        trace = f.read()
+    if "sketch_kernel" not in trace:
+        fail("the --profile trace does not name the sketch kernel")
+    print(f"observe: {len(recs)} JSONL stages, all with hbm_in_use_mb "
+          f"(max {max(r['hbm_in_use_mb'] for r in recs):.1f} MB); trace "
+          f"{os.path.getsize(traces[0]) / 1e6:.1f} MB names sketch_kernel "
+          f"{trace.count('sketch_kernel')} times")
+
+    fq = os.path.join(tmp, "lane.fastq")
+    t0 = time.monotonic()
+    write_fastq(fq, lane_reads, bc_ids)
+    print(f"fastq: {os.path.getsize(fq) / 1e9:.3f} GB written in "
+          f"{time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    if not native_loader.available():
+        fail("the native FASTQ loader did not build on this host")
+    build_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    native = FB.fastq_to_fqb(fq)
+    native_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    plain = FB.fastq_to_fqb(fq, prefer_native=False)
+    plain_s = time.monotonic() - t0
+    same = all((getattr(native, f) == getattr(plain, f)).all()
+               for f in ("packed", "lengths", "barcode_ids", "barcode_keys"))
+    if not same or plain.nmask is not None or native.nmask is not None:
+        fail("native loader Fqb != numpy parser Fqb")
+    del native, plain
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.monotonic()
+    run(["-k", str(K), "-w", str(W), "-r", str(SEED), "-B", "22",
+         "--minCount", "2", "--maxCount", "64", "--friendShare", "8",
+         "--readFastq", fq, "--hashInfo", "--hashDist", "--codeClusters",
+         "--clusterSplit", "--clusterReport"], out, err)
+    wall = time.monotonic() - t0
+    if out.getvalue() != main_text:
+        fail("--readFastq report != the .fqb report of phase 4")
+    print(f"readFastq: native loader (built in {build_s:.3f} s) "
+          f"{native_s:.3f} s vs numpy parser {plain_s:.3f} s for "
+          f"{len(bc_ids)} reads, equal Fqb; CLI stdout "
+          f"({main_text.count(chr(10))} lines) byte-identical to phase 4; "
+          f"CLI wall {wall:.3f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -576,6 +895,9 @@ def main() -> int:
     max_err, ms, plain_ms = phase_parity(torch, MK, HashSpec, compact_rows)
     modes, err_w = phase_mode_parity(torch, MK, HashSpec, compact_rows_of)
     max_err = max(max_err, err_w)
+    from hash10x_tpu_torch.crib.crib import _ROWS
+    crib_err, crib_ms, crib_plain_ms = phase_crib_parity(
+        torch, MK, HashSpec, _ROWS["cuda"])
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.monotonic()
@@ -592,6 +914,10 @@ def main() -> int:
         phase_counts(torch, MK, run, tmp)
         phase_checkpoint(torch, MK, run, lane, tmp)
         phase_cuda_vs_cpu_modes(run, tmp)
+        crib_launches = phase_crib(torch, MK, run, tmp)
+        phase_legacy(torch, MK, run, lane)
+        phase_cuda_vs_cpu_legacy(run, tmp)
+        phase_observe(torch, MK, run, tmp, reads, bc_ids, text)
 
     src = "hash10x_tpu_torch/csrc/minimizer.cu"
     tpu = "hash10x_tpu/kernels/minimizer_pallas.py:403"
@@ -604,6 +930,10 @@ def main() -> int:
                         "source": src, "replaces": tpu,
                         "launches": mode_launches[mode], "max_abs_err": err,
                         "ms": mode_ms, "plain_ms": mode_plain_ms})
+    kernels.append({"name": "seqhash_sketch_kmer_crib", "route": "cuda",
+                    "source": src, "replaces": tpu,
+                    "launches": crib_launches, "max_abs_err": crib_err,
+                    "ms": crib_ms, "plain_ms": crib_plain_ms})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

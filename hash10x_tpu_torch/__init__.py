@@ -1,10 +1,10 @@
 """hash10x-tpu-torch: the PyTorch + CUDA port of ``hash10x_tpu``.
 
-The same sketch-and-cluster engine for 10x linked reads (seqhash minimizer
+The same sketch-and-cluster engine for 10x linked reads (seqhash
 sketching, the k-mer x barcode count table, the count band, the incidence,
-friend clustering, split and report), written as eager torch code on an
-explicit device, with the sketch as a hand-written CUDA kernel
-(``csrc/minimizer.cu``).  It never imports JAX; the JAX package is the
+friend, capped-friend and pair clustering, split, report and the crib truth
+evaluation), written as eager torch code on an explicit device, with the
+sketch as a hand-written CUDA kernel (``csrc/minimizer.cu``).  It never imports JAX; the JAX package is the
 reference the tests hold it against.
 
 Key convention: canonical hashes are below 2^(2k) <= 2^62, so keys are int64

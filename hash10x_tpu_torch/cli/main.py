@@ -18,9 +18,19 @@ Parameters (take effect for later commands):
   --minimizer | --modimizer | --allKmers | --syncmer <s>   sketch mode
   --countMode <barcodes|occurrences>
   --minCount <n> --maxCount <n>   count band for good k-mers
+  --clusterMode <friend|pair>   clustering contract (default friend)
+  --minShare <n>       pair-mode support threshold (default 2)
   --friendShare <n>    friend-mode barcode share threshold
+  --maxFriends <n>     friend mode: keep each barcode's top n friends
+                       (default 0 = uncapped, the sparse pipeline)
   --batchReads <n>
   --errorFixReads <m>  rescue threshold for --errorFix (0 = drop-only)
+  --metrics <file>     append per-command JSONL metrics (set before the
+                       first command that creates the engine)
+  --devMem             add the device memory torch holds to the
+                       per-command lines (CUDA only)
+  --profile <dir>      torch.profiler trace (CPU + CUDA) of all later
+                       commands, written for TensorBoard into <dir>
   -t <n>               thread count (accepted for compatibility; ignored)
 
 Commands (executed in order):
@@ -44,15 +54,20 @@ Commands (executed in order):
                        loaded incidence)
   --clusterSplit       remap (code, cluster) -> new molecule codes
   --clusterReport      per-code cluster report to stdout
+  --cribBuild <fa> [<fa2>]   build truth labels from one or two haplotype
+                       FASTAs (the second path is taken iff it is a file)
+  --cribReport         cluster purity vs the crib to stdout
   --help
 
-The multi-GPU, crib, legacy cluster-mode and observability flags of
-hash10x_tpu exit with "not yet ported".  Every command is followed by a
-timing/RSS line on stderr.
+The multi-GPU and multi-process flags of hash10x_tpu (--hosts, --hostId,
+--coordinator, --shards, --laneCapacity, --labelBlocks, --readFQBShard)
+exit with "not yet ported".  Every command is followed by a timing/RSS line
+on stderr.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import List, Optional
 
@@ -61,9 +76,7 @@ __all__ = ["main", "run"]
 # flags of the JAX package's CLI that this port does not run yet
 _NOT_PORTED = {
     "--hosts", "--hostId", "--coordinator", "--shards", "--laneCapacity",
-    "--labelBlocks", "--readFQBShard", "--minShare", "--clusterMode",
-    "--maxFriends", "--cribBuild", "--cribReport", "--metrics", "--devMem",
-    "--profile"}
+    "--labelBlocks", "--readFQBShard"}
 
 
 class _State:
@@ -79,11 +92,19 @@ class _State:
         self.count_mode = "barcodes"
         self.min_count = 2
         self.max_count = 64
+        self.cluster_mode = "friend"
+        self.min_share = 2
         self.min_friend_share = 8
+        self.max_friends = 0
         self.batch_reads = 4096
         self.error_fix_min_reads = 0
+        self.metrics_path = None
+        self.device_mem = False
         self.engine = None
         self.fqb = None
+        self.crib = None
+        self.profiler = None
+        self.profile_dir = None
 
     def get_engine(self):
         from ..engine import Engine, EngineConfig
@@ -100,17 +121,27 @@ class _State:
                 mode=self.mode, syncmer_s=self.syncmer_s,
                 table_bits=self.table_bits, batch_reads=self.batch_reads,
                 count_mode=self.count_mode, min_count=self.min_count,
-                max_count=self.max_count,
+                max_count=self.max_count, cluster_mode=self.cluster_mode,
+                min_share=self.min_share,
                 min_friend_share=self.min_friend_share,
+                max_friends=self.max_friends,
                 error_fix_min_reads=self.error_fix_min_reads)
             self.engine = Engine(cfg, dev, log=self.err)
+            if self.metrics_path or self.device_mem:
+                from ..utils.timing import StageTimer
+                self.engine.timer = StageTimer(
+                    self.err, self.metrics_path, device_mem=self.device_mem,
+                    device=dev)
         else:
             # tunables may change between commands; hash, table and device
             # parameters are guarded instead
             cfg = self.engine.cfg
             cfg.min_count = self.min_count
             cfg.max_count = self.max_count
+            cfg.cluster_mode = self.cluster_mode
+            cfg.min_share = self.min_share
             cfg.min_friend_share = self.min_friend_share
+            cfg.max_friends = self.max_friends
             cfg.batch_reads = self.batch_reads
             cfg.error_fix_min_reads = self.error_fix_min_reads
         return self.engine
@@ -132,6 +163,21 @@ def _parse_sim(spec: str):
     return SimConfig(**kwargs)
 
 
+def _start_profiler(directory: str):
+    """Start a torch.profiler over the CPU and, where present, CUDA that
+    writes a TensorBoard trace into ``directory`` when stopped."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, \
+        tensorboard_trace_handler
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(directory))
+    prof.start()
+    return prof
+
+
 def main(argv: Optional[List[str]] = None, out=None, err=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     out = out or sys.stdout
@@ -144,14 +190,28 @@ def main(argv: Optional[List[str]] = None, out=None, err=None) -> int:
 
 def run(argv: List[str], out, err):
     """Execute the commands of ``argv`` in order; returns the engine they
-    ran on (None if no command needed one)."""
+    ran on (None if no command needed one).  A profiler started by
+    ``--profile`` is stopped, and the metrics file closed, however the
+    commands end."""
+    st = _State(err)
+    try:
+        _execute(argv, out, st)
+    finally:
+        if st.profiler is not None:
+            st.profiler.stop()
+        if st.engine is not None:
+            st.engine.timer.close()
+    if st.profiler is not None:
+        err.write(f"[profile] trace written to {st.profile_dir}\n")
+    return st.engine
+
+
+def _execute(argv: List[str], out, st: _State) -> None:
     from ..io import fqb as FB
     from ..io.sim import simulate
 
     modes = {"--minimizer": "minimizer", "--modimizer": "modimizer",
              "--allKmers": "kmer"}
-
-    st = _State(err)
     i = 0
 
     def need(n: int, flag: str) -> List[str]:
@@ -186,12 +246,29 @@ def run(argv: List[str], out, err):
             st.min_count = int(need(1, a)[0])
         elif a == "--maxCount":
             st.max_count = int(need(1, a)[0])
+        elif a == "--clusterMode":
+            st.cluster_mode = need(1, a)[0]
+        elif a == "--minShare":
+            st.min_share = int(need(1, a)[0])
         elif a == "--friendShare":
             st.min_friend_share = int(need(1, a)[0])
+        elif a == "--maxFriends":
+            st.max_friends = int(need(1, a)[0])
         elif a == "--batchReads":
             st.batch_reads = int(need(1, a)[0])
         elif a == "--errorFixReads":
             st.error_fix_min_reads = int(need(1, a)[0])
+        elif a == "--metrics":
+            st.metrics_path = need(1, a)[0]
+        elif a == "--devMem":
+            st.device_mem = True
+        elif a == "--profile":
+            # a torch.profiler trace of everything after this flag; a
+            # second --profile is accepted and ignored
+            directory = need(1, a)[0]
+            if st.profiler is None:
+                st.profiler = _start_profiler(directory)
+                st.profile_dir = directory
         elif a == "-t":
             need(1, a)  # accepted for compatibility; the device runs batches
         # ---- commands ----
@@ -243,13 +320,31 @@ def run(argv: List[str], out, err):
             st.get_engine().split()
         elif a == "--clusterReport":
             st.get_engine().report(out)
+        elif a == "--cribBuild":
+            from ..crib.crib import build_crib
+            paths = [need(1, a)[0]]
+            # the second haplotype is taken iff the next token is a file
+            if i + 1 < len(argv) and os.path.isfile(argv[i + 1]):
+                paths.append(need(1, a)[0])
+            eng = st.get_engine()
+            if eng.retained_hashes is None:
+                eng.filter(st.min_count, st.max_count)
+            st.crib = build_crib(eng.cfg.spec, eng.retained_hashes, paths)
+            eng.timer.stage(f"cribBuild: {len(paths)} haplotype(s)")
+        elif a == "--cribReport":
+            from ..crib.crib import crib_report
+            eng = st.get_engine()
+            if st.crib is None or eng.cluster_labels is None:
+                raise SystemExit("--cribReport requires --cribBuild and "
+                                 "--codeClusters")
+            n = crib_report(eng.inc, eng.cluster_labels, st.crib, out)
+            eng.timer.stage(f"cribReport: {n} clusters")
         elif a in _NOT_PORTED:
             raise SystemExit(f"{a}: not yet ported to hash10x_tpu_torch "
                              "(run it with python -m hash10x_tpu)")
         else:
             raise SystemExit(f"unknown argument {a!r} (see --help)")
         i += 1
-    return st.engine
 
 
 if __name__ == "__main__":

@@ -1,0 +1,248 @@
+"""Per-barcode molecule clustering in padded device batches — the port of
+``hash10x_tpu/cluster/cooccur.py`` (the pair and capped-friend modes of
+``--codeClusters``; the uncapped friend mode routes to ``cluster/sparse.py``).
+
+Each barcode's k-mers are one row of a batch; barcodes are bucketed by
+k-mer-set size into power-of-two classes (``_size_class``) so one batch
+holds rows of one padded width K.  Per batch:
+
+1. gather each k-mer's barcode list from the inverted CSR -> CL (B, K, C),
+   ascending, -1 padded;
+2. pair mode: dense-rank the codes of each row into a local universe of U
+   codes, build the 0/1 indicator D (B, K, U) and the support S = D @ D^T
+   (B, K, K); two k-mers link iff S - 1 >= min_share (both lists always hold
+   the barcode itself);
+   capped-friend mode: the barcode's shares with every other barcode, its
+   top ``max_friends`` friends by the packed key share * n + (n - 1 - id)
+   (share descending, then smaller id), kept iff share >= the threshold; a
+   k-mer and a friend link iff the friend is in the k-mer's list;
+3. min-label propagation to the fixpoint: each k-mer's label is the
+   smallest k-mer index of its component;
+4. canonical ranks: the number of distinct component labels below a
+   k-mer's label, which is first-appearance numbering (oracle:
+   ``hash10x_tpu/oracle/cluster_ref.py``).
+
+The support product runs on float32 operands: 0/1 inputs and their sums are
+exact in float32 (and in TF32 products with float32 accumulation), while a
+bfloat16 result holds integers exactly only up to 256.  The local universe
+is dense-ranked (the JAX package spans all K * C slots), so D holds only the
+distinct codes of a row, and its product runs in sub-batches bounded by the
+byte budget.  Labels do not depend on batch composition, so the batch size
+is a memory choice only: ``max_batch_bytes`` bounds the per-batch working
+set (2 GiB by default on a device with 80 GB; the JAX package's 256 MiB was
+a TPU choice).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..table.incidence import Incidence
+
+__all__ = ["cluster_batch", "shares_batch", "friend_union_batch",
+           "cluster_codes"]
+
+_PAD = (1 << 31) - 1       # sorts after every code (codes are int32-sized)
+_BATCH_BYTES = 2 << 30
+
+
+def _size_class(n: int) -> int:
+    c = 8
+    while c < n:
+        c *= 2
+    return c
+
+
+def _propagate(step, valid: torch.Tensor) -> torch.Tensor:
+    """Iterate ``lab <- step(lab)`` from each valid row's own index (pads
+    hold K) until nothing changes; one host sync per round."""
+    B, K = valid.shape
+    lab = torch.where(valid, torch.arange(K, device=valid.device), K)
+    while True:
+        new = step(lab)
+        if torch.equal(new, lab):
+            return lab
+        lab = new
+
+
+def _canonical(labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Number of distinct labels of the row below each label (pads -1)."""
+    lab_s = torch.sort(torch.where(valid, labels, _PAD), dim=1).values
+    is_first = torch.ones_like(lab_s, dtype=torch.bool)
+    is_first[:, 1:] = lab_s[:, 1:] != lab_s[:, :-1]
+    is_first &= lab_s != _PAD
+    distinct_upto = torch.cumsum(is_first.to(torch.int64), dim=1)
+    pos = torch.searchsorted(lab_s, labels.contiguous())   # first equal slot
+    below = torch.gather(distinct_upto, 1, torch.clamp(pos - 1, min=0))
+    return torch.where(valid & (pos > 0), below,
+                       torch.where(valid, 0, -1))
+
+
+def _support(cl: torch.Tensor, max_bytes: int) -> torch.Tensor:
+    """S[b, k, l] = number of codes that lists k and l of row b share, as
+    float32, computed as D @ D^T over the dense-ranked local universe."""
+    B, K, C = cl.shape
+    flat = cl.reshape(B, K * C)
+    pad = flat < 0
+    srt, order = torch.sort(torch.where(pad, _PAD, flat), dim=1)
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    ranks_s = torch.cumsum(first.to(torch.int64), dim=1) - 1
+    ranks = torch.empty_like(ranks_s).scatter_(1, order, ranks_s)
+    ranks = torch.where(pad, 0, ranks).reshape(B, K, C)
+    real = (~pad).reshape(B, K, C).to(torch.float32)
+    U = int(ranks.max()) + 1
+    s = torch.empty((B, K, K), dtype=torch.float32, device=cl.device)
+    sub = max(1, max_bytes // (4 * K * U))
+    for a in range(0, B, sub):
+        b = min(a + sub, B)
+        d = torch.zeros((b - a, K, U), dtype=torch.float32, device=cl.device)
+        # pads scatter 0 into rank 0; amax keeps a real 1 there
+        d.scatter_reduce_(2, ranks[a:b], real[a:b], "amax")
+        torch.bmm(d, d.transpose(1, 2), out=s[a:b])
+    return s
+
+
+def cluster_batch(cl: torch.Tensor, kmer_valid: torch.Tensor,
+                  min_share: int = 2,
+                  max_bytes: int = _BATCH_BYTES) -> torch.Tensor:
+    """Pair mode on one padded batch: ``cl (B, K, C)`` sorted barcode ids
+    per k-mer, -1 padded; ``kmer_valid (B, K)``.  Returns canonical labels
+    (B, K) int64, pad rows -1."""
+    K = cl.shape[1]
+    s = _support(cl, max_bytes)
+    both = kmer_valid[:, :, None] & kmer_valid[:, None, :]
+    adj = (s - 1.0 >= min_share) & both
+    adj |= torch.eye(K, dtype=torch.bool, device=cl.device)[None] \
+        & kmer_valid[:, :, None]
+
+    def step(lab):
+        nbr = torch.where(adj, lab[:, None, :], K).min(dim=2).values
+        return torch.minimum(lab, nbr)
+    return _canonical(_propagate(step, kmer_valid), kmer_valid)
+
+
+def shares_batch(cl: torch.Tensor, self_codes: torch.Tensor,
+                 n_codes: int) -> torch.Tensor:
+    """Rows of the barcode x barcode co-occurrence matrix: for each row, the
+    number of its k-mers each barcode holds, self zeroed.  ``cl (B, K, C)``
+    (-1 pad), ``self_codes (B,)``; returns (B, n_codes) int64."""
+    B = cl.shape[0]
+    flat = cl.reshape(B, -1)
+    ok = flat >= 0
+    acc = torch.zeros((B, n_codes), dtype=torch.int64, device=cl.device)
+    acc.scatter_add_(1, torch.where(ok, flat, 0), ok.to(torch.int64))
+    acc[torch.arange(B, device=cl.device), self_codes] = 0
+    return acc
+
+
+def friend_union_batch(cl: torch.Tensor, kmer_valid: torch.Tensor,
+                       friends: torch.Tensor) -> torch.Tensor:
+    """Components of the bipartite (k-mer, friend) graph of one padded
+    batch: ``cl (B, K, C)`` ascending lists (-1 pad), ``friends (B, F)``
+    (-1 pad).  A k-mer and a friend connect iff the friend's id is in the
+    k-mer's list.  Returns canonical labels (B, K), pad rows -1."""
+    B, K, C = cl.shape
+    F = friends.shape[1]
+    clp = torch.where(cl < 0, _PAD, cl)
+    fq = torch.where(friends < 0, -2, friends)           # never matches
+    fq_k = fq[:, None, :].expand(B, K, F).contiguous()
+    idx = torch.searchsorted(clp, fq_k)
+    hit = torch.gather(clp, 2, torch.clamp(idx, max=C - 1))
+    m = (hit == fq_k) & kmer_valid[:, :, None]
+
+    def step(lab):
+        colmin = torch.where(m, lab[:, :, None], K).min(dim=1).values
+        back = torch.where(m, colmin[:, None, :], K).min(dim=2).values
+        return torch.minimum(lab, back)
+    return _canonical(_propagate(step, kmer_valid), kmer_valid)
+
+
+def _friends(cl: torch.Tensor, self_codes: torch.Tensor, n_codes: int,
+             thr: int, max_friends: int) -> torch.Tensor:
+    """Top-``max_friends`` friends of each row through the unique packed key
+    share * n + (n - 1 - id); -1 where the share is below ``thr``."""
+    share = shares_batch(cl, self_codes, n_codes)
+    iota = torch.arange(n_codes, device=cl.device)
+    key = share * n_codes + (n_codes - 1 - iota)
+    top = torch.topk(key, min(max_friends, n_codes), dim=1).values
+    top_share = top // n_codes
+    top_id = n_codes - 1 - top % n_codes
+    return torch.where(top_share >= thr, top_id, -1)
+
+
+def _gather_lists(inc: Incidence, km: torch.Tensor, valid: torch.Tensor,
+                  C: int) -> torch.Tensor:
+    """CL (B, K, C): the inverted-CSR list of every k-mer id of ``km``."""
+    kid = torch.clamp(km, min=0)
+    off = inc.kmer_offsets[kid]
+    ll = inc.kmer_offsets[kid + 1] - off
+    ci = torch.arange(C, device=km.device)
+    ok = (ci < ll[:, :, None]) & valid[:, :, None]
+    last = max(inc.kmer_codes.shape[0] - 1, 0)
+    idx = torch.clamp(off[:, :, None] + ci, max=last)
+    return torch.where(ok, inc.kmer_codes[idx], -1)
+
+
+def _row_bytes(mode: str, K: int, C: int, n_codes: int,
+               max_friends: int) -> int:
+    """Working set of one batch row in bytes (int64 and float32 cells):
+    pair mode holds CL and its sort (K*C), S and the propagation temporaries
+    (K*K); friend mode holds CL, the share and key rows (n_codes) and the
+    membership temporaries (K*F)."""
+    if mode == "pair":
+        return 8 * (4 * K * C + 3 * K * K)
+    F = min(max_friends, n_codes)
+    return 8 * (2 * K * C + 3 * n_codes + 4 * K * F)
+
+
+def cluster_codes(inc: Incidence, min_share: int = 2, mode: str = "friend",
+                  min_friend_share: int = 8, max_friends: int = 256,
+                  max_batch_bytes: int = _BATCH_BYTES) -> torch.Tensor:
+    """Cluster every barcode of ``inc`` (the ``--codeClusters`` pass).
+
+    mode="pair": the pairwise-support contract (``cluster_barcode``);
+    mode="friend": friend barcodes, capped at ``max_friends`` per barcode
+    (``cluster_barcode_friend``); ``max_friends=0`` runs the uncapped sparse
+    pipeline of ``cluster/sparse.py``.  Returns int64 labels aligned with
+    the forward CSR (``inc.code_kmers``)."""
+    if mode not in ("pair", "friend"):
+        raise ValueError(f"unknown cluster mode {mode!r}")
+    if mode == "friend" and max_friends == 0:
+        from .sparse import cluster_codes_sparse
+        return cluster_codes_sparse(inc, min_friend_share=min_friend_share)
+    dev = inc.device
+    out = torch.full((inc.n_pairs,), -1, dtype=torch.int64, device=dev)
+    if inc.n_pairs == 0:
+        return out
+    code_of = inc.code_of_pair()
+    list_lens = torch.diff(inc.kmer_offsets)
+    longest = torch.zeros(inc.n_codes, dtype=torch.int64, device=dev)
+    longest.scatter_reduce_(0, code_of, list_lens[inc.code_kmers], "amax")
+    sizes = torch.diff(inc.code_offsets).cpu().numpy()
+    longest = longest.cpu().numpy()
+    order = np.argsort(sizes, kind="stable")
+    active = order[sizes[order] > 0]
+    kcs = np.array([_size_class(int(n)) for n in sizes[active]])
+    for kc in np.unique(kcs):
+        codes = active[kcs == kc]
+        K, C = int(kc), _size_class(int(longest[codes].max()))
+        bsz = max(1, max_batch_bytes // _row_bytes(mode, K, C, inc.n_codes,
+                                                   max_friends))
+        kio = torch.arange(K, device=dev)
+        for a in range(0, len(codes), bsz):
+            chunk = torch.from_numpy(codes[a:a + bsz]).to(dev)
+            valid = kio[None, :] < (inc.code_offsets[chunk + 1]
+                                    - inc.code_offsets[chunk])[:, None]
+            pos = torch.where(valid, inc.code_offsets[chunk][:, None] + kio, 0)
+            km = torch.where(valid, inc.code_kmers[pos], -1)
+            cl = _gather_lists(inc, km, valid, C)
+            if mode == "pair":
+                labels = cluster_batch(cl, valid, min_share, max_batch_bytes)
+            else:
+                friends = _friends(cl, chunk, inc.n_codes, min_friend_share,
+                                   max_friends)
+                labels = friend_union_batch(cl, valid, friends)
+            out[pos[valid]] = labels[valid]
+    return out

@@ -21,6 +21,7 @@ from .table import sorted_table as st
 from .table.incidence import Incidence
 
 __all__ = ["keys_from_numpy", "table_from_numpy", "incidence_from_numpy",
+           "labels_from_numpy",
            "engine_state_from_numpy", "keys_to_numpy", "to_numpy",
            "incidence_to_numpy", "incidence_from_npz"]
 
@@ -84,6 +85,12 @@ def engine_state_from_numpy(engine, hashes_u64, counts_u32, retained_u64=None,
         else torch.from_numpy(np.asarray(retained_counts)
                               .astype(np.int32)).to(dev)
     engine.inc = None if inc is None else incidence_from_numpy(inc, dev)
+
+
+def labels_from_numpy(labels, device) -> torch.Tensor:
+    """The JAX package's flat cluster labels (int32, aligned with the
+    forward CSR) as the port's int64 label tensor."""
+    return torch.from_numpy(np.asarray(labels).astype(np.int64)).to(device)
 
 
 def keys_to_numpy(keys: torch.Tensor) -> np.ndarray:

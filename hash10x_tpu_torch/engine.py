@@ -37,7 +37,7 @@ import torch
 
 from . import INT64_MAX
 from . import convert
-from .cluster.sparse import cluster_codes_sparse
+from .cluster import cooccur
 from .core.encode import unpack_2bit_torch
 from .hashspec import HashSpec
 from .io.fqb import Fqb
@@ -80,7 +80,10 @@ class EngineConfig:
     count_mode: str = "barcodes"     # barcodes | occurrences
     min_count: int = 2
     max_count: int = 64
+    cluster_mode: str = "friend"     # friend | pair
+    min_share: int = 2               # pair-mode support threshold
     min_friend_share: int = 8
+    max_friends: int = 0             # friend mode: 0 = uncapped (sparse)
     error_fix_min_reads: int = 0     # >0 (barcodes mode): error_fix rescues
                                      # error-band k-mers with at least this
                                      # many raw occurrences in the lane
@@ -106,7 +109,7 @@ class Engine:
         self.n_reads_counted = 0
         self._read_len = 0
         self._lane_cache = None  # (fqb, device lane, spans)
-        self.timer = StageTimer(log, self.device)
+        self.timer = StageTimer(log, device=self.device)
 
     # -- incidence and the state derived from it ------------------------------
 
@@ -282,8 +285,10 @@ class Engine:
         if int(overflow):
             self._raise_overflow("count")
         self.n_reads_counted += int((fqb.lengths > 0).sum())
+        # the table grows instead of spilling: "spilled 0" keeps the JAX
+        # package's stage label
         self.timer.stage(f"count: {self.n_reads_counted} reads, "
-                         f"{self.table.n_filled} kmers")
+                         f"{self.table.n_filled} kmers, spilled 0")
 
     def _finish_group(self, gtab: st.SortedTable) -> None:
         """Move an oversized barcode's side table into the count table: each
@@ -416,13 +421,18 @@ class Engine:
         self.timer.stage(f"incidence: {self.inc.n_pairs} pairs, "
                          f"{self.inc.n_codes} codes x {self.inc.n_kmers} kmers")
 
-    def cluster(self) -> None:
-        """Per-barcode molecule clustering (``--codeClusters``)."""
+    def cluster(self, min_share: int = 0) -> None:
+        """Per-barcode molecule clustering (``--codeClusters``) in the
+        configured mode: uncapped friend (the sparse pipeline), capped
+        friend or pair (``cluster/cooccur.py``)."""
         inc = self.inc
         if inc is None:
             raise RuntimeError("cluster requires incidence (run incidence first)")
-        labels = cluster_codes_sparse(
-            inc, min_friend_share=self.cfg.min_friend_share)
+        cfg = self.cfg
+        labels = cooccur.cluster_codes(
+            inc, min_share=min_share or cfg.min_share, mode=cfg.cluster_mode,
+            min_friend_share=cfg.min_friend_share,
+            max_friends=cfg.max_friends)
         self._set_labels(labels)
         n_cl = 0
         if inc.n_pairs:

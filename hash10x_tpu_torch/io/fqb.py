@@ -129,15 +129,16 @@ def from_packed(packed: np.ndarray, lengths: np.ndarray, barcode_keys: np.ndarra
                nmask=nmask)
 
 
-def paired_fastq_to_fqb(r1_path, r2_path, out_path=None, max_len: int = 0
-                        ) -> Fqb:
+def paired_fastq_to_fqb(r1_path, r2_path, out_path=None, max_len: int = 0,
+                        prefer_native: bool = True) -> Fqb:
     """Paired Chromium lane: R1 = 16bp GEM barcode + genomic, R2 = genomic.
 
     R2 reads inherit their mate's barcode (same record order — the Chromium
     demultiplexed-FASTQ contract, SURVEY.md §1); both mates' genomic sequence
     lands in one Fqb so the k-mer x barcode table sees all bases.
     """
-    f1 = fastq_to_fqb(r1_path, barcoded=True, max_len=max_len)
+    f1 = fastq_to_fqb(r1_path, barcoded=True, max_len=max_len,
+                      prefer_native=prefer_native)
     b2 = read_fastq(r2_path, max_len=max_len)
     if len(b2) != len(f1):
         raise ValueError(f"R1 has {len(f1)} records but R2 has {len(b2)}")
@@ -179,14 +180,23 @@ def paired_fastq_to_fqb(r1_path, r2_path, out_path=None, max_len: int = 0
 
 
 def fastq_to_fqb(fastq_path, out_path=None, barcoded: bool = True,
-                 max_len: int = 0) -> Fqb:
+                 max_len: int = 0, prefer_native: bool = True) -> Fqb:
     """FASTQ (R1 with leading 16bp GEM barcode if ``barcoded``) -> Fqb.
 
-    The FASTQ->FQB converter of SURVEY.md §3.1 #3, on the vectorized numpy
-    parser.  It gives the same Fqb as the JAX package's native C loader
-    (``tests/test_io.py::test_native_loader_matches_numpy``).
+    The FASTQ->FQB converter of SURVEY.md §3.1 #3.  Uses the native C loader
+    (``io/native_loader.py``: fused parse and pack) when it builds and
+    ``barcoded``; otherwise the vectorized numpy parser.  Both give the same
+    Fqb.
     """
-    # max_len means post-barcode genomic length
+    if barcoded and prefer_native:
+        from . import native_loader
+        parts = native_loader.load_fastq_native(fastq_path, max_len=max_len)
+        if parts is not None:
+            fqb = from_packed(*parts)
+            if out_path is not None:
+                save_fqb(out_path, fqb)
+            return fqb
+    # max_len means post-barcode genomic length in both loader paths
     raw_max = (max_len + BARCODE_LEN) if (barcoded and max_len) else max_len
     batch = read_fastq(fastq_path, max_len=raw_max)
     if barcoded:

@@ -299,10 +299,10 @@ def test_cli_write_fqb_round_trip(lane):
 def test_not_ported_flags_are_exactly_later_items():
     assert cli._NOT_PORTED == {
         "--hosts", "--hostId", "--coordinator", "--shards", "--laneCapacity",
-        "--labelBlocks", "--readFQBShard", "--minShare", "--clusterMode",
-        "--maxFriends", "--cribBuild", "--cribReport", "--metrics",
-        "--devMem", "--profile"}
-    for flag in ("--countMode", "--syncmer", "--errorFix", "--readHash"):
+        "--labelBlocks", "--readFQBShard"}
+    for flag in ("--countMode", "--syncmer", "--errorFix", "--readHash",
+                 "--minShare", "--clusterMode", "--maxFriends", "--metrics",
+                 "--devMem", "--profile", "--cribBuild", "--cribReport"):
         assert flag in cli.__doc__
 
 
