@@ -14,10 +14,16 @@ Phases (any failure exits non-zero):
                 and overflow batches: minimizer and kmer modes, w = 100 and
                 w = 130 = P, and modimizer (m = w, 7, 2, 65521 at k = 21, 16,
                 31) and syncmer (s = 11, 5, 1, 20 at k = 21; s = 30 at k = 31)
-                modes, dense and compacted; kernel and plain times of each
-                mode at B=4096, L=150; and the crib's shape: kmer mode, dense,
-                L = 32,768 with N blocks, rows shorter than k and one of
-                exactly k bases, timed per row group of the crib's height
+                modes, dense and compacted; the crib's shape: kmer mode,
+                dense, L = 32,768 with N blocks, rows shorter than k and one
+                of exactly k bases; seeded cases aimed at the kernel's tile
+                edges in every mode, on rows at unaligned addresses too
+                (phase_tile_fuzz).  Each route (minimizer, modimizer,
+                syncmer at B=4096, L=150; a crib row group) is timed three
+                ways, each with CUDA events: the kernel's device time per
+                launch (kernel_device_ms), the wrapper's time per call (the
+                kernels line's "ms") and the plain version's, against its
+                bound (sketch_bound)
   4. main     - the 800k-read / 50k-barcode lane of bench.py as an .fqb,
                 through hash10x_tpu_torch.cli.main on CUDA; every batch must go
                 through the kernel (launch counter > 0, plain calls == 0)
@@ -107,6 +113,89 @@ def _batch(rng, B, L, k, w, bad=0.0, ragged=False, homo=2):
     return codes, lengths
 
 
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+# 32-bit integer operations per second: 132 SMs x 64 INT32 lanes x 1.98 GHz
+# (the float32 row's 67 TFLOP/s counts 128 lanes and two per FMA)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+OPS_PER_HASH = 20  # a canonical hash: 2 64-bit multiplies at 4, 2 64-bit
+#                    shifts at 2, the 64-bit compare and select at 4, the
+#                    forward and reverse-complement roll at 4
+
+
+def sketch_bound(B, L, R, k, mode="minimizer", s=0):
+    """(bytes, operations, bound_ms, bound_by) of one sketch call: each
+    base and length read once, each output slot (int64 hash, flags byte)
+    and overflow count written once; a lower count of the integer work
+    (every k-mer position hashed, syncmer's s-mers hashed and k - s
+    compares per position, minimizer's 2 compares per position)."""
+    P = L - k + 1
+    nbytes = B * L + 4 * B + B * R * 9 + 4 * B
+    ops = B * P * OPS_PER_HASH
+    if mode == "syncmer":
+        ops += B * (L - s + 1) * OPS_PER_HASH + B * P * (k - s) * 2
+    elif mode == "minimizer":
+        ops += B * P * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (nbytes, ops, max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def launcher(torch, MK, spec, c, ln, kw):
+    """One sketch kernel launch on (c, ln) into preallocated outputs
+    (``MK._launch``: without the wrapper's allocations and flag
+    conversions)."""
+    B, L = c.shape
+    R = kw.get("compact_to", 0) or L - spec.k + 1
+    out = (torch.empty((B, R), dtype=torch.int64, device=c.device),
+           torch.empty((B, R), dtype=torch.uint8, device=c.device),
+           torch.empty(B, dtype=torch.int32, device=c.device))
+    args = (kw.get("mode", "minimizer"), kw.get("compact_to", 0),
+            kw.get("m", 0), kw.get("syncmer_s", 0))
+    return lambda: MK._launch(spec, c, ln, out, *args)
+
+
+def kernel_device_ms(torch, launch, n=20):
+    """Device time per launch of ``launch()``: CUDA events around n
+    launches queued behind a spin kernel, so that they run back to back on
+    the card.  The spin must still be running when the last launch is
+    queued, else the events would hold host gaps; it is lengthened until
+    it is."""
+    launch()
+    torch.cuda.synchronize()
+    spin = 2_000_000  # cycles, ~1 ms
+    for _ in range(8):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        e0.record()
+        for _ in range(n):
+            launch()
+        e1.record()
+        queued_in_time = not e0.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return e0.elapsed_time(e1) / n
+        spin *= 4
+    fail("the card ran the timed sketch launches faster than the host "
+         "queued them")
+
+
+def kernel_entry(name, launches, err, ms, plain_ms, device_ms, shape):
+    """One entry of the kernels JSON line; ``shape`` = sketch_bound's
+    arguments for the timed call.  ``ms`` is the wrapper's time per call
+    (CUDA events over back-to-back calls, as in earlier slices),
+    ``device_ms`` the kernel's alone (kernel_device_ms)."""
+    _, _, bound_ms, bound_by = sketch_bound(*shape)
+    return {"name": name, "route": "cuda",
+            "source": "hash10x_tpu_torch/csrc/minimizer.cu",
+            "replaces": "hash10x_tpu/kernels/minimizer_pallas.py:403",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "device_ms": device_ms,
+            "bound_share": bound_ms / device_ms}
+
+
 def phase_parity(torch, MK, HashSpec, compact_rows):
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -146,22 +235,36 @@ def phase_parity(torch, MK, HashSpec, compact_rows):
 
     # times at the main path's shape (B=4096, L=150, k=21, w=11, C)
     spec = HashSpec(k=K, w=W, seed=SEED)
-    ms, plain_ms = time_sketch(torch, MK, rng, spec,
-                               dict(mode="minimizer", compact_to=compact_rows))
-    print(f"sketch B={PARITY_B} L={READ_LEN} k={K} w={W} C={compact_rows}: "
-          f"kernel {ms:.4f} ms/batch, plain {plain_ms:.4f} ms/batch "
-          f"(CUDA events, mean of 2x50 launches each)")
-    return max_err, ms, plain_ms
+    times = time_sketch(torch, MK, rng, spec,
+                        dict(mode="minimizer", compact_to=compact_rows))
+    print_times(f"sketch B={PARITY_B} L={READ_LEN} k={K} w={W} "
+                f"C={compact_rows}", times,
+                (PARITY_B, READ_LEN, compact_rows, K, "minimizer"))
+    return (max_err, *times)
+
+
+def print_times(what, times, shape):
+    ms, plain_ms, dev_ms = times
+    nbytes, ops, bound_ms, bound_by = sketch_bound(*shape)
+    print(f"{what}: device {dev_ms:.4f} ms/launch (CUDA events around "
+          f"back-to-back launches into preallocated outputs); wrapper "
+          f"{ms:.4f} ms/call, plain {plain_ms:.4f} "
+          f"ms/call (CUDA events over back-to-back calls, kernel, plain, "
+          f"plain, kernel); bound {bound_ms:.4f} ms ({nbytes} bytes, {ops} "
+          f"int32 ops: {bound_by}), {bound_ms / dev_ms:.4f} of it")
 
 
 def time_sketch(torch, MK, rng, spec, kw, n=50):
-    """Kernel and plain ms per B=4096, L=150 batch."""
+    """Wrapper and plain ms per call and the kernel's device ms per launch
+    on a B=4096, L=150 batch."""
     dev = torch.device("cuda")
     codes, lengths = _batch(rng, PARITY_B, READ_LEN, spec.k, spec.w)
     lengths[:] = READ_LEN
     c = torch.from_numpy(codes).to(dev)
     ln = torch.from_numpy(lengths).to(dev)
-    return time_kernel_plain(torch, MK, spec, c, ln, kw, n)
+    ms, plain_ms = time_kernel_plain(torch, MK, spec, c, ln, kw, n)
+    return ms, plain_ms, kernel_device_ms(
+        torch, launcher(torch, MK, spec, c, ln, kw))
 
 
 def time_kernel_plain(torch, MK, spec, c, ln, kw, n, warm=3):
@@ -192,7 +295,7 @@ def phase_mode_parity(torch, MK, HashSpec, compact_rows_of):
     whose row 0 is a full-length poly-A read: its hash is 0, so every
     position is a modimizer and (all s-mers tie) a syncmer, and the
     compacted row must overflow.  Returns per mode (max_abs_err, ms,
-    plain_ms)."""
+    plain_ms, device_ms)."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 1)
     cases = [("minimizer", 21, 100, {}), ("minimizer", 21, 130, {})]
@@ -231,12 +334,12 @@ def phase_mode_parity(torch, MK, HashSpec, compact_rows_of):
     for mode, kw in (("modimizer", {"m": W}), ("syncmer", {"syncmer_s": 11})):
         spec = HashSpec(k=K, w=W, seed=SEED)
         C = compact_rows_of(spec, mode, kw)
-        ms, plain_ms = time_sketch(torch, MK, rng, spec,
-                                   dict(mode=mode, compact_to=C, **kw))
-        print(f"sketch {mode} {kw} B={PARITY_B} L={READ_LEN} k={K} C={C}: "
-              f"kernel {ms:.4f} ms/batch, plain {plain_ms:.4f} ms/batch "
-              f"(CUDA events, mean of 2x50 launches each)")
-        out[mode] = (err[mode], ms, plain_ms)
+        times = time_sketch(torch, MK, rng, spec,
+                            dict(mode=mode, compact_to=C, **kw))
+        shape = (PARITY_B, READ_LEN, C, K, mode, kw.get("syncmer_s", 0))
+        print_times(f"sketch {mode} {kw} B={PARITY_B} L={READ_LEN} k={K} "
+                    f"C={C}", times, shape)
+        out[mode] = (err[mode], *times, shape)
     return out, err["minimizer"]
 
 
@@ -622,12 +725,127 @@ def phase_crib_parity(torch, MK, HashSpec, crib_rows):
     ln = torch.from_numpy(lengths).to(dev)
     ms, plain_ms = time_kernel_plain(torch, MK, spec, c, ln,
                                      dict(mode="kmer"), n=3, warm=1)
-    print(f"sketch kmer dense B={crib_rows} L={L} k={K} (one crib row "
-          f"group): kernel {ms:.4f} ms/group, plain {plain_ms:.4f} ms/group "
-          f"(CUDA events, mean of 2x3 calls each)")
+    dev_ms = kernel_device_ms(
+        torch, launcher(torch, MK, spec, c, ln, dict(mode="kmer")), n=5)
+    print_times(f"sketch kmer dense B={crib_rows} L={L} k={K} (one crib "
+                f"row group; plain over 2x3 calls, device over 5)",
+                (ms, plain_ms, dev_ms), (crib_rows, L, L - K + 1, K, "kmer"))
     del c, ln, got, ref
     torch.cuda.empty_cache()
-    return err, ms, plain_ms
+    return err, ms, plain_ms, dev_ms
+
+
+def tile_geometry(P, k, w, mode):
+    """(own positions per tile, halo) of csrc/minimizer.cu's geometry()."""
+    halo = w - 1 if mode == "minimizer" else 0
+    want = -(-P // -(-P // 1024))
+    n = -(-(want + 2 * halo) // 32) | 1
+    return 32 * n - 2 * halo, halo
+
+
+def _tile_rows(rng, B, L, k, w, mode):
+    """Rows aimed at the tile kernel's edges.  At every edge t0 between two
+    tiles each row from 5 on gets one of: an N at the first base of the
+    tile's left halo, an N at the last base of the previous tile's right
+    halo, a run of exactly w - 1, w or w + 1 valid positions straddling
+    t0, or a k-mer repeated w - 1 positions later (equal hashes at both
+    ends of a window).  Row 0 is poly-A (every hash equal), rows 1-4 have
+    k - 1, k, L and k + w - 2 bases; the rest are ragged, with scattered
+    Ns."""
+    P = L - k + 1
+    T, halo = tile_geometry(P, k, w, mode)
+    codes = rng.integers(0, 4, size=(B, L)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.001] = 4
+    lengths = np.where(rng.random(B) < 0.5, L,
+                       rng.integers(0, L + 1, size=B)).astype(np.int32)
+    for t0 in range(T, P, T):
+        for r in range(5, B):
+            kind = (r + t0 // T) % 6
+            if kind < 2:
+                i = t0 - halo if kind == 0 else t0 + halo + k - 2
+                if 0 <= i < L:
+                    codes[r, i] = 4
+            elif kind < 5:
+                run = max(w - 3 + kind, 1)            # w - 1, w, w + 1
+                st = t0 - int(rng.integers(0, run + 1))
+                end = min(st + run + k - 1, L)        # first base past it
+                codes[r, max(st, 0):end] &= 3
+                if st >= 1:
+                    codes[r, st - 1] = 4
+                if end < L:
+                    codes[r, end] = 4
+            else:
+                p = max(t0 - int(rng.integers(0, w)), 0)
+                q = p + w - 1
+                if q + k <= L:
+                    codes[r, p:p + k] &= 3
+                    codes[r, q:q + k] = codes[r, p:p + k]
+    codes[0] = 0
+    lengths[:4] = [L, k - 1, k, L]
+    lengths[4] = min(L, k + w - 2)
+    return codes, lengths
+
+
+def phase_tile_fuzz(torch, MK, HashSpec):
+    """Seeded parity cases at the tile kernel's risks, every mode, dense and
+    compacted: rows spanning many tiles (L = 32,768 in minimizer and
+    syncmer modes), w = 1, k = 31, s = 1 and s = k - 1, m = 1 and 65521,
+    compact rows that overflow C in their first tile, B not a multiple of
+    the warps per block, w = P, the widest tile window (4096) and one past
+    it (the scratch-ring kernel), and rows at unaligned addresses.  Returns
+    max_abs_err."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 4)
+    wmax = MK.build().h10x_max_tile_w()
+    cases = [  # (mode, k, w, kw, B, L, compact widths[, base offset])
+        ("minimizer", 21, 11, {}, 64, 1 << 15, (0, 64, 8000)),
+        ("syncmer", 21, 11, {"syncmer_s": 11}, 64, 1 << 15, (0, 64, 8000)),
+        ("minimizer", 4, 1, {}, 257, 3000, (0, 16)),
+        ("minimizer", 31, 64, {}, 257, 3000, (0, 32, 400)),
+        ("minimizer", 21, 100, {}, 257, 3000, (0, 50)),
+        ("minimizer", 21, wmax, {}, 33, 3 * wmax, (0, 8)),
+        ("minimizer", 21, wmax + 1, {}, 33, 3 * wmax, (0, 8)),
+        ("minimizer", 21, 11, {}, 4093, READ_LEN, (0, 8, 64)),
+        ("minimizer", 21, 130, {}, 4093, READ_LEN, (0, 8)),
+        ("kmer", 31, 11, {}, 1001, 2500, (0, 16)),
+        ("modimizer", 21, 11, {"m": 1}, 1001, 2500, (0, 16)),
+        ("modimizer", 16, 11, {"m": 65521}, 1001, 2500, (0, 16)),
+        ("syncmer", 21, 11, {"syncmer_s": 1}, 1001, 2500, (0, 100)),
+        ("syncmer", 21, 11, {"syncmer_s": 20}, 1001, 2500, (0, 100)),
+        ("syncmer", 31, 11, {"syncmer_s": 30}, 513, 2500, (0, 100)),
+    ]
+    # rows at every offset mod 16 from a base that is itself unaligned, and
+    # B * L not a multiple of 16: the first and last rows' partial chunks
+    cases = [case + (0,) for case in cases] + [
+        ("minimizer", 21, 11, {}, 1001, 151, (0, 8), 3),
+        ("kmer", 21, 11, {}, 33, 2501, (0,), 7),
+        ("syncmer", 21, 11, {"syncmer_s": 11}, 257, 1999, (0, 40), 13),
+    ]
+    max_err = 0.0
+    for mode, k, w, kw, B, L, widths, off in cases:
+        spec = HashSpec(k=k, w=w, seed=SEED)
+        codes, lengths = _tile_rows(rng, B, L, k, w, mode)
+        buf = torch.empty(off + B * L, dtype=torch.uint8, device=dev)
+        c = buf[off:].view(B, L)
+        c.copy_(torch.from_numpy(codes))
+        ln = torch.from_numpy(lengths).to(dev)
+        T, _ = tile_geometry(L - k + 1, k, w, mode)
+        for C in widths:
+            got = MK.sketch(spec, c, ln, mode=mode, compact_to=C, **kw)
+            torch.cuda.synchronize()
+            ref = MK.sketch_plain(spec, c, ln, mode=mode, compact_to=C, **kw)
+            torch.cuda.synchronize()
+            max_err = max(max_err, float((got[0] - ref[0]).abs().max()))
+            same = all(torch.equal(a, b) for a, b in zip(got, ref))
+            print(f"tile fuzz {mode} k={k} w={w} {kw} B={B} L={L} C={C} "
+                  f"offset {off} (tile {T} positions): "
+                  f"{'equal' if same else 'DIFFERENT'} (emitted "
+                  f"{int(got[2].sum())}, overflow {int(got[3].sum())})")
+            if not same:
+                fail(f"tile fuzz: kernel != plain for {mode} k={k} w={w} "
+                     f"{kw} L={L} C={C}")
+        del buf, c, ln
+    return max_err
 
 
 class StageLog(io.StringIO):
@@ -892,12 +1110,12 @@ def main() -> int:
         return Engine(cfg, "cuda", log=None)._compact_rows(
             READ_LEN - spec.k + 1)
     compact_rows = compact_rows_of(HashSpec(k=K, w=W, seed=SEED))
-    max_err, ms, plain_ms = phase_parity(torch, MK, HashSpec, compact_rows)
+    max_err, *main_times = phase_parity(torch, MK, HashSpec, compact_rows)
     modes, err_w = phase_mode_parity(torch, MK, HashSpec, compact_rows_of)
     max_err = max(max_err, err_w)
     from hash10x_tpu_torch.crib.crib import _ROWS
-    crib_err, crib_ms, crib_plain_ms = phase_crib_parity(
-        torch, MK, HashSpec, _ROWS["cuda"])
+    crib = phase_crib_parity(torch, MK, HashSpec, _ROWS["cuda"])
+    fuzz_err = phase_tile_fuzz(torch, MK, HashSpec)
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.monotonic()
@@ -919,21 +1137,17 @@ def main() -> int:
         phase_cuda_vs_cpu_legacy(run, tmp)
         phase_observe(torch, MK, run, tmp, reads, bc_ids, text)
 
-    src = "hash10x_tpu_torch/csrc/minimizer.cu"
-    tpu = "hash10x_tpu/kernels/minimizer_pallas.py:403"
-    kernels = [{"name": "seqhash_sketch", "route": "cuda", "source": src,
-                "replaces": tpu, "launches": launches,
-                "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}]
+    kernels = [kernel_entry(
+        "seqhash_sketch", launches, max(max_err, fuzz_err), *main_times,
+        (PARITY_B, READ_LEN, compact_rows, K, "minimizer"))]
     for mode in ("modimizer", "syncmer"):  # emission :279-280 and :281-292
-        err, mode_ms, mode_plain_ms = modes[mode]
-        kernels.append({"name": f"seqhash_sketch_{mode}", "route": "cuda",
-                        "source": src, "replaces": tpu,
-                        "launches": mode_launches[mode], "max_abs_err": err,
-                        "ms": mode_ms, "plain_ms": mode_plain_ms})
-    kernels.append({"name": "seqhash_sketch_kmer_crib", "route": "cuda",
-                    "source": src, "replaces": tpu,
-                    "launches": crib_launches, "max_abs_err": crib_err,
-                    "ms": crib_ms, "plain_ms": crib_plain_ms})
+        err, *times, shape = modes[mode]
+        kernels.append(kernel_entry(f"seqhash_sketch_{mode}",
+                                    mode_launches[mode], err, *times, shape))
+    crib_rows = _ROWS["cuda"]
+    kernels.append(kernel_entry(
+        "seqhash_sketch_kmer_crib", crib_launches, crib[0], *crib[1:],
+        (crib_rows, 1 << 15, (1 << 15) - K + 1, K, "kmer")))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

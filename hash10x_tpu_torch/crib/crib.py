@@ -11,8 +11,9 @@ purity and haplotype phasing can be scored.
 Genome hashing runs through the sketch kernel's dense kmer mode
 (``kernels.minimizer.sketch``): sequences stream in rows of ``_CHUNK`` bases
 with a k - 1 overlap, so every genome k-mer is hashed in exactly one row.
-The kernel runs one thread per row, so on a CUDA device a row group is as
-tall as the genome allows (``_ROWS``); results do not depend on the height.
+On a CUDA device a row group is as tall as the genome allows (``_ROWS``),
+so a haplotype takes few launches of the kernel and of the lookup around
+it; results do not depend on the height.
 The lookup is a ``searchsorted`` against the sorted retained keys, and the
 multiplicity and first position of each retained k-mer accumulate on the
 device.  ``Crib`` holds host numpy arrays and ``crib_report`` is host numpy,
@@ -41,9 +42,11 @@ HOM, HET1, HET2, MUL, ERR = 0, 1, 2, 3, 4
 LABEL_NAMES = ("HOM", "HET1", "HET2", "MUL", "ERR")
 
 _CHUNK = 1 << 15
-# rows per kernel launch: the CUDA kernel runs a thread per row, so a card
-# takes every row it can get (a 100 Mb haplotype is ~3,100 rows); the CPU's
-# plain version holds a few int64 (rows, _CHUNK) temporaries, so it takes few
+# rows per kernel launch.  The CUDA kernel gives each ~1,000-position tile of
+# a row its own warp, so a few hundred rows already fill the card; the
+# height is kept at 4,096 so that a 100 Mb haplotype (~3,100 rows) is one
+# launch of the kernel and of the lookup and scatters after it.  The CPU's
+# plain version holds a few int64 (rows, _CHUNK) temporaries, so it takes few.
 _ROWS = {"cuda": 4096, "cpu": 32}
 
 

@@ -4,9 +4,11 @@ version on CPU tensors.
 Replaces the TPU kernel of ``hash10x_tpu/kernels/minimizer_pallas.py``
 (``_make_kernel``, launched through ``pl.pallas_call`` at :403 and exposed as
 ``sketch``/``sketch_minimizer_compact``).  The CUDA source is
-``csrc/minimizer.cu``; its header says what bounds it on an H100 (a per-read
-sequential scan that reads ~1 byte per base and writes ~9 bytes per emitted
-slot) and what the one-thread-per-read design does about it.
+``csrc/minimizer.cu``; its header says what bounds it on an H100 (bytes: one
+read of each base, one write of each output slot) and what the design does
+about it: a warp per tile of a row, the tile's bases staged in shared memory
+with 16-byte loads, hashes rolled position-parallel into shared memory, and
+coalesced stores (compacted rows ranked with a warp ballot).
 
 ``sketch`` launches the kernel for a CUDA tensor and raises when it cannot;
 it never gives way to the plain version there.  ``sketch_plain`` is the same
@@ -17,8 +19,9 @@ and serves CPU tensors.  ``LAUNCHES`` counts kernel launches and
 The kernel is built with ``nvcc`` for ``sm_90a`` into ``_build/`` (ignored by
 git) at first use, keyed by a hash of the source, and loaded with ctypes.
 It runs every mode of ``seqhash.sketch`` (``KERNEL_MODES``) for any batch
-size and any ``w``: minimizer mode with ``w`` above the kernel's 64-entry
-thread-local deque gets a scratch ring in device memory from the wrapper.
+size and any ``w``: minimizer windows wider than the tile kernel's
+(``h10x_max_tile_w``, 4096) take a thread-per-read body whose deque lives in
+a scratch ring in device memory that the wrapper passes.
 """
 
 from __future__ import annotations
@@ -44,7 +47,6 @@ LAUNCHES = 0
 PLAIN_CALLS = 0
 
 KERNEL_MODES = {"kmer": 0, "minimizer": 1, "modimizer": 2, "syncmer": 3}
-LOCAL_RING = 64  # csrc/minimizer.cu kLocalRing: larger w take a scratch ring
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "minimizer.cu"
@@ -53,6 +55,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _lib = None
+_max_tile_w = 0  # widest tile-kernel minimizer window, set by build()
 
 
 def _nvcc() -> str:
@@ -66,7 +69,7 @@ def _nvcc() -> str:
 
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
-    global _lib
+    global _lib, _max_tile_w
     if _lib is not None:
         return _lib
     src = SOURCE.read_bytes()
@@ -91,8 +94,10 @@ def build() -> ctypes.CDLL:
     fn.argtypes = [ptr, ptr, i32, i32, i32, i32, u64, i32, i32, u64, i32,
                    u64, i32, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr]
     fn.restype = ctypes.c_int
+    lib.h10x_max_tile_w.restype = ctypes.c_int
+    _max_tile_w = lib.h10x_max_tile_w()
     _lib = lib
-    return lib
+    return _lib
 
 
 def sketch_plain(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor,
@@ -133,7 +138,7 @@ def sketch(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor,
     modimizer modulus (0 = ``w``), ``syncmer_s`` the syncmer s-mer size.
     CPU tensors take the plain version; CUDA tensors launch the kernel on the
     current stream or raise ``ValueError`` on what it does not take."""
-    global LAUNCHES, PLAIN_CALLS
+    global PLAIN_CALLS
     if codes.device.type == "cpu":
         PLAIN_CALLS += 1
         return sketch_plain(spec, codes, lengths, mode=mode,
@@ -155,24 +160,38 @@ def sketch(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor,
     P = L - spec.k + 1
     if P < 1:
         raise ValueError(f"read length {L} < k {spec.k}")
-    modulus = (m or spec.w) if mode == "modimizer" else 0
-    if mode == "modimizer" and not 1 <= modulus < (1 << 63):
-        raise ValueError(f"modimizer modulus must be in [1, 2^63), got {modulus}")
-    sub = seqhash.smer_spec(spec, syncmer_s) if mode == "syncmer" else None
     codes = codes.contiguous()
     lengths = lengths.contiguous()
     dev = codes.device
     R = compact_to or P
-    out_h = torch.empty((B, R), dtype=torch.int64, device=dev)
-    out_f = torch.empty((B, R), dtype=torch.uint8, device=dev)
-    over = torch.empty(B, dtype=torch.int32, device=dev)
+    out = (torch.empty((B, R), dtype=torch.int64, device=dev),
+           torch.empty((B, R), dtype=torch.uint8, device=dev),
+           torch.empty(B, dtype=torch.int32, device=dev))
+    _launch(spec, codes, lengths, out, mode, compact_to, m, syncmer_s)
+    out_h, out_f, over = out
+    return out_h, (out_f & 2) != 0, (out_f & 1) != 0, over
+
+
+def _launch(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor, out,
+            mode: str, compact_to: int, m: int, syncmer_s: int) -> None:
+    """One kernel launch on :func:`sketch`'s checked, contiguous CUDA inputs
+    into ``out`` = (hashes (B, R) int64, flags (B, R) uint8 with bit 0
+    emitted and bit 1 forward, overflow (B,) int32)."""
+    global LAUNCHES
+    modulus = (m or spec.w) if mode == "modimizer" else 0
+    if mode == "modimizer" and not 1 <= modulus < (1 << 63):
+        raise ValueError(f"modimizer modulus must be in [1, 2^63), got {modulus}")
+    sub = seqhash.smer_spec(spec, syncmer_s) if mode == "syncmer" else None
+    lib = build()
+    B, L = codes.shape
+    dev = codes.device
+    out_h, out_f, over = out
     ring_h = ring_pf = None
     ring = 0
-    if mode == "minimizer" and spec.w > LOCAL_RING:
+    if mode == "minimizer" and spec.w > _max_tile_w:
         ring = 1 << (spec.w - 1).bit_length()  # a power of two >= w
         ring_h = torch.empty((ring, B), dtype=torch.int64, device=dev)
         ring_pf = torch.empty((ring, B), dtype=torch.int32, device=dev)
-    lib = build()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.h10x_sketch(
         codes.data_ptr(), lengths.data_ptr(), B, L, spec.k, spec.w,
@@ -185,4 +204,3 @@ def sketch(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"sketch kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
-    return out_h, (out_f & 2) != 0, (out_f & 1) != 0, over
