@@ -18,7 +18,8 @@ Phases (any failure exits non-zero):
                 dense, L = 32,768 with N blocks, rows shorter than k and one
                 of exactly k bases; seeded cases aimed at the kernel's tile
                 edges in every mode, on rows at unaligned addresses too
-                (phase_tile_fuzz).  Each route (minimizer, modimizer,
+                (phase_tile_fuzz; it also times the w = 4,097 case on
+                sketch_kernel_wide).  Each route (minimizer, modimizer,
                 syncmer at B=4096, L=150; a crib row group) is timed three
                 ways, each with CUDA events: the kernel's device time per
                 launch (kernel_device_ms), the wrapper's time per call (the
@@ -59,6 +60,20 @@ Phases (any failure exits non-zero):
                 800k lane written as FASTQ and read with --readFastq through
                 the native loader: stdout byte-identical to phase 4's, load
                 walls of the native loader and the numpy parser
+ 15. shards   - the 800k lane through the CLI on CUDA with --shards 4 and with
+                --shards 2: stdout (table slots masked), --writeCounts and
+                --writeClusters byte-identical to phase 4's; the same 392
+                kernel launches, 0 plain calls; stage walls and lines
+ 16. lanes    - the lane with --shards 4 --laneCapacity 4096 (overflows: the
+                pass runs again with doubled lanes, output unchanged), and
+                with --labelBlocks 1048576 (labels unchanged)
+ 17. hosts    - two processes sharing the card over gloo (--hosts 2 --shards
+                4, cuda:0), each under a hard timeout: with --readFQB of the
+                lane and with --readFQBShard of the lane split into two
+                barcode-disjoint files, the coordinator's stdout equals phase
+                4's and the other process prints nothing; launches and walls
+                per process
+ 18. cpu4     - CUDA and CPU byte-identical with --shards 4 on phase 6's lane
 The last two lines of stdout before the result are a JSON line describing
 the kernels and the card's name and power limit; the last line is the JSON
 result {"ok": true, "device": {...}}.
@@ -67,6 +82,7 @@ result {"ok": true, "device": {...}}.
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -844,6 +860,15 @@ def phase_tile_fuzz(torch, MK, HashSpec):
             if not same:
                 fail(f"tile fuzz: kernel != plain for {mode} k={k} w={w} "
                      f"{kw} L={L} C={C}")
+            if w > wmax and C == 0:
+                # the thread-per-read sketch_kernel_wide: no lane runs it
+                dms = kernel_device_ms(
+                    torch, launcher(torch, MK, spec, c, ln, {}), n=5)
+                nbytes, ops, bound, by = sketch_bound(B, L, L - k + 1, k)
+                print(f"sketch_kernel_wide w={w} B={B} L={L} dense: "
+                      f"{dms:.4f} device ms per launch; {nbytes} bytes, "
+                      f"{ops} operations, bound {bound:.5f} ms ({by}); "
+                      f"bound share {bound / dms:.4f}")
         del buf, c, ln
     return max_err
 
@@ -1086,6 +1111,242 @@ def phase_observe(torch, MK, run, tmp, lane_reads, bc_ids, main_text):
           f"CLI wall {wall:.3f} s")
 
 
+# -- phases 15-18: the sharded and multi-process paths --------------------------
+
+SLOTS = re.compile(r"^table slots \d+ ", re.M)
+
+
+def masked(text):
+    """Stdout with the number after ``table slots`` masked: each path grows
+    its table (or shards) on its own schedule."""
+    return SLOTS.sub("table slots N ", text)
+
+
+def shard_walls(err_text):
+    """Seconds per stage (count, filter+incidence, cluster, split, report)
+    from stage lines, sharded labels folded in ("count[sharded x4]" ->
+    count); other stderr lines are skipped."""
+    walls = {}
+    for line in err_text.splitlines():
+        if not line.startswith("[") or "] wall " not in line:
+            continue
+        label = line[1:].split(":")[0].split("[")[0].split(" ")[0]
+        walls[label] = walls.get(label, 0.0) + float(
+            line.split("] wall ")[1].split("s")[0])
+    return {"count": walls.get("count", 0.0),
+            "filter+incidence": walls.get("filter", 0.0)
+            + walls.get("incidence", 0.0),
+            "cluster": walls.get("cluster", 0.0),
+            "split": walls.get("split", 0.0),
+            "report": walls.get("report", 0.0)}
+
+
+def print_walls(what, walls, extra=""):
+    print(f"{what} walls (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in walls.items())
+        + f"; sum {sum(walls.values()):.3f}{extra}")
+
+
+def stage_lines(err_text):
+    return [line for line in err_text.splitlines()
+            if line.startswith("[") and "] wall " in line]
+
+
+def write_dumps(eng, tmp, tag):
+    """The engine's --writeCounts and --writeClusters text as files."""
+    paths = [os.path.join(tmp, f"{tag}.{x}") for x in ("counts", "clusters")]
+    with open(paths[0], "w") as f:
+        eng.write_counts(f)
+    with open(paths[1], "w") as f:
+        eng.write_clusters(f)
+    return paths
+
+
+def same_files(a, b):
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def lane_argv(lane, *flags):
+    return ["-k", str(K), "-w", str(W), "-r", str(SEED), "-B", "22",
+            "--minCount", "2", "--maxCount", "64", "--friendShare", "8",
+            *flags, "--readFQB", lane, "--hashInfo", "--hashDist",
+            "--codeClusters", "--clusterSplit", "--clusterReport"]
+
+
+def phase_shards(torch, MK, run, lane, tmp, main_text, main_dumps,
+                 main_launches):
+    """Phase 15: the 800k lane with --shards 4 and --shards 2 through the
+    CLI on CUDA: stdout and both dumps byte-identical to phase 4's."""
+    for n in (4, 2):
+        dumps = [os.path.join(tmp, f"shards{n}.{x}")
+                 for x in ("counts", "clusters")]
+        argv = lane_argv(lane, "--shards", str(n)) + [
+            "--writeCounts", dumps[0], "--writeClusters", dumps[1]]
+        out, err, eng, launches, wall = run_counted(torch, MK, run, argv)
+        del eng
+        if launches != main_launches:
+            fail(f"--shards {n}: {launches} kernel launches, phase 4 made "
+                 f"{main_launches}")
+        if masked(out) != masked(main_text):
+            fail(f"--shards {n} stdout != phase 4's")
+        for a, b in zip(dumps, main_dumps):
+            if not same_files(a, b):
+                fail(f"--shards {n} {os.path.basename(a)} != phase 4's")
+        print("\n".join(f"shards {n} stage {line}"
+                        for line in stage_lines(err)))
+        print_walls(f"shards {n}", shard_walls(err),
+                    f"; CLI wall {wall:.3f}; kernel launches {launches}, "
+                    f"plain calls 0; peak device memory "
+                    f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        print(f"shards {n}: stdout ({out.count(chr(10))} lines), counts and "
+              "clusters dumps byte-identical to phase 4")
+
+
+def phase_lanes(torch, MK, run, lane, tmp, main_text, main_dumps):
+    """Phase 16: lanes too small for the lane (the retry doubles them, the
+    output is unchanged) and blocked label propagation (labels unchanged)."""
+    out, err, eng, _, wall = run_counted(
+        torch, MK, run, lane_argv(lane, "--shards", "4", "--laneCapacity",
+                                  "4096"))
+    grown = eng.cfg.lane_capacity
+    del eng
+    retries = [line for line in stage_lines(err) if "lane overflow" in line]
+    if not retries or grown <= 4096:
+        fail("--laneCapacity 4096 did not overflow and retry")
+    if masked(out) != masked(main_text):
+        fail("--laneCapacity retry changed the output")
+    print("\n".join(f"lanes retry: {line}" for line in retries))
+    print(f"lanes: --laneCapacity 4096 grew to {grown}; stdout "
+          f"byte-identical to phase 4; CLI wall {wall:.3f}")
+    clusters = os.path.join(tmp, "blocks.clusters")
+    out, err, eng, _, wall = run_counted(
+        torch, MK, run, lane_argv(lane, "--shards", "4", "--labelBlocks",
+                                  str(1 << 20))
+        + ["--writeClusters", clusters])
+    del eng
+    if masked(out) != masked(main_text) or not same_files(clusters,
+                                                           main_dumps[1]):
+        fail("--labelBlocks changed the labels")
+    print_walls("lanes --labelBlocks 1048576", shard_walls(err),
+                f"; CLI wall {wall:.3f}; report and clusters dump "
+                "byte-identical to phase 4")
+
+
+_HOST_MAIN = ("import sys\n"
+              "from hash10x_tpu_torch.cli.main import main\n"
+              "from hash10x_tpu_torch.kernels import minimizer as MK\n"
+              "rc = main(sys.argv[1:])\n"
+              "sys.stderr.write(f'launches {MK.LAUNCHES} plain calls "
+              "{MK.PLAIN_CALLS}\\n')\n"
+              "sys.exit(rc)\n")
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_hosts(tmp, argv, n=2, timeout=600):
+    """``n`` CLI processes joined over gloo on this card, each under a hard
+    timeout; returns [(stdout, stderr, wall)] by process id."""
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _HOST_MAIN, "--hosts", str(n), "--hostId",
+         str(i), "--coordinator", f"127.0.0.1:{port}"] + argv,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=tmp,
+        env=env) for i in range(n)]
+    res = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=timeout)
+            res.append((o, e, time.monotonic() - t0))
+            if p.returncode != 0:
+                fail(f"--hosts process exited {p.returncode}: {e[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return res
+
+
+def split_lane(tmp, reads, bc_ids):
+    """The lane as two barcode-disjoint .fqb files (barcode parity), each
+    with its own local barcode ids."""
+    from hash10x_tpu_torch.core.encode import pack_2bit
+    from hash10x_tpu_torch.io.fqb import Fqb, save_fqb
+    for pid in range(2):
+        sel = bc_ids % 2 == pid
+        keys = np.unique(bc_ids[sel]).astype(np.uint32)
+        save_fqb(os.path.join(tmp, f"half{pid}.fqb"), Fqb(
+            packed=pack_2bit(reads[sel]),
+            lengths=np.full(int(sel.sum()), READ_LEN, np.int32),
+            barcode_ids=np.searchsorted(keys, bc_ids[sel]).astype(np.int32),
+            barcode_keys=keys, read_len=READ_LEN))
+
+
+def phase_hosts(lane, tmp, reads, bc_ids, main_text):
+    """Phase 17: two processes sharing the card over gloo (--hosts 2
+    --shards 4), the whole lane in each and the lane split into two
+    barcode-disjoint files: the coordinator's stdout is phase 4's, the other
+    process prints nothing."""
+    split_lane(tmp, reads, bc_ids)
+    for src in (["--readFQB", lane],
+                ["--readFQBShard", os.path.join(tmp, "half{host}.fqb")]):
+        argv = [a for a in lane_argv(lane, "--shards", "4")
+                if a not in ("--readFQB", lane)]
+        i = argv.index("--hashInfo")
+        argv = argv[:i] + src + argv[i:]
+        res = run_hosts(tmp, argv)
+        (out0, err0, _), (out1, err1, _) = res
+        if masked(out0) != masked(main_text):
+            fail(f"--hosts 2 {src[0]}: the coordinator's stdout != phase 4's")
+        if out1.strip():
+            fail(f"--hosts 2 {src[0]}: process 1 wrote to stdout")
+        for pid, (_, e, wall) in enumerate(res):
+            launch = [line for line in e.splitlines()
+                      if line.startswith("launches ")]
+            if not launch or launch[0].split()[1] == "0" \
+                    or launch[0].split()[-1] != "0":
+                fail(f"--hosts 2 process {pid}: {launch}")
+            print("\n".join(f"hosts {src[0]} process {pid} stage {line}"
+                            for line in stage_lines(e)))
+            print_walls(f"hosts {src[0]} process {pid}", shard_walls(e),
+                        f"; process wall {wall:.3f}; {launch[0]}")
+        print(f"hosts {src[0]}: coordinator stdout byte-identical to "
+              "phase 4, process 1 stdout empty")
+
+
+def phase_cuda_vs_cpu_shards(run, tmp):
+    """Phase 18: CUDA and CPU byte-identical with --shards 4 on the 20k
+    lane of phase 6."""
+    outs = []
+    for dev in ("cuda", "cpu"):
+        out = io.StringIO()
+        files = [os.path.join(tmp, f"ragged4_{dev}.{x}")
+                 for x in ("counts", "clusters")]
+        run(["--device", dev, "--shards", "4", "-k", str(K), "-w", str(W),
+             "-r", str(SEED), "--batchReads", "1024", "--friendShare", "4",
+             "--readFQB", os.path.join(tmp, "ragged.fqb"), "--hashInfo",
+             "--hashDist", "--codeClusters", "--clusterSplit",
+             "--clusterReport", "--writeCounts", files[0],
+             "--writeClusters", files[1]], out, io.StringIO())
+        texts = [out.getvalue()]
+        for f in files:
+            with open(f) as fh:
+                texts.append(fh.read())
+        outs.append(texts)
+    if outs[0] != outs[1]:
+        fail("CUDA and CPU runs differ with --shards 4 on the ragged lane")
+    print(f"cuda vs cpu --shards 4: 20k ragged lane, stdout "
+          f"({outs[0][0].count(chr(10))} lines) and dumps byte-identical")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1099,6 +1360,10 @@ def main() -> int:
     from hash10x_tpu_torch.table import sorted_table as st
 
     smi = phase_device(torch)
+    t_start = time.monotonic()
+
+    def elapsed(what):
+        print(f"elapsed after {what}: {time.monotonic() - t_start:.1f} s")
     t0 = time.monotonic()
     MK.build()
     print(f"build: {time.monotonic() - t0:.3f} s (nvcc {' '.join(MK.NVCC_FLAGS)})")
@@ -1116,6 +1381,7 @@ def main() -> int:
     from hash10x_tpu_torch.crib.crib import _ROWS
     crib = phase_crib_parity(torch, MK, HashSpec, _ROWS["cuda"])
     fuzz_err = phase_tile_fuzz(torch, MK, HashSpec)
+    elapsed("phases 1-3")
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.monotonic()
@@ -1127,6 +1393,8 @@ def main() -> int:
         eng, text, launches = phase_main(torch, MK, run, lane)
         phase_c_ref(torch, st, run, eng, text, reads, bc_ids, tmp)
         phase_cuda_vs_cpu(run, tmp)
+        main_dumps = write_dumps(eng, tmp, "main")
+        elapsed("phases 4-6")
         del eng
         mode_launches = phase_modes(torch, MK, run, lane)
         phase_counts(torch, MK, run, tmp)
@@ -1136,6 +1404,12 @@ def main() -> int:
         phase_legacy(torch, MK, run, lane)
         phase_cuda_vs_cpu_legacy(run, tmp)
         phase_observe(torch, MK, run, tmp, reads, bc_ids, text)
+        elapsed("phases 7-14")
+        phase_shards(torch, MK, run, lane, tmp, text, main_dumps, launches)
+        phase_lanes(torch, MK, run, lane, tmp, text, main_dumps)
+        phase_hosts(lane, tmp, reads, bc_ids, text)
+        phase_cuda_vs_cpu_shards(run, tmp)
+        elapsed("phases 15-18")
 
     kernels = [kernel_entry(
         "seqhash_sketch", launches, max(max_err, fuzz_err), *main_times,

@@ -10,20 +10,39 @@ Usage: python -m hash10x_tpu_torch [commands...]
 
 Parameters (take effect for later commands):
   --device <cuda|cpu>  device to run on (default cuda; there is no fallback:
-                       without a CUDA device, pass --device cpu)
+                       without a CUDA device, pass --device cpu).  With
+                       --hosts, process i runs on cuda:(i mod device count)
   -k <int>             k-mer size (default 21)
   -w <int>             minimizer window / modimizer modulus (default 11)
   -r <int>             hash seed (default 17)
   -B | --tableBits <b> count table starts with 2^b slots (default 22)
+  --hosts <n>          multi-process run over n processes (each loads its
+                       rows of every batch; the shards spread over the
+                       processes, joined by torch.distributed over gloo);
+                       pair with --hostId and --coordinator (or the
+                       H10X_NUM_PROCESSES, H10X_PROCESS_ID and
+                       H10X_COORDINATOR variables); stdout and output files
+                       are written by process 0 only
+  --hostId <i>         this process's id in [0, hosts)
+  --coordinator <a:p>  address of process 0 (host:port, a free port)
   --minimizer | --modimizer | --allKmers | --syncmer <s>   sketch mode
-  --countMode <barcodes|occurrences>
   --minCount <n> --maxCount <n>   count band for good k-mers
-  --clusterMode <friend|pair>   clustering contract (default friend)
   --minShare <n>       pair-mode support threshold (default 2)
   --friendShare <n>    friend-mode barcode share threshold
+  --clusterMode <pair|friend>   clustering contract (default friend)
   --maxFriends <n>     friend mode: keep each barcode's top n friends
                        (default 0 = uncapped, the sparse pipeline)
+  --countMode <barcodes|occurrences>
   --batchReads <n>
+  --shards <n>         shard count, incidence and friend clustering over n
+                       shards (a power of two; with --hosts the default is
+                       the process count); one process holds n / hosts
+                       shards on its device
+  --laneCapacity <n>   sharded paths: send-lane slots per destination shard
+                       (0 = auto-size to expected load; a pass that
+                       overflows its lanes runs again with doubled lanes)
+  --labelBlocks <n>    sharded clustering: propagate labels in
+                       barcode-aligned blocks of ~n pairs (full-lane scale)
   --errorFixReads <m>  rescue threshold for --errorFix (0 = drop-only)
   --metrics <file>     append per-command JSONL metrics (set before the
                        first command that creates the engine)
@@ -37,6 +56,8 @@ Commands (executed in order):
   --readFastq <fq>     parse FASTQ (16bp GEM barcode prefix) and run the count pass
   --readFastqPair <r1> <r2>   paired lane: R1 = barcode+genomic, R2 = genomic
   --readFQB <fqb>      load packed reads and run the count pass
+  --readFQBShard <fqb> multi-process: each process loads only its own
+                       barcode-disjoint shard file ("{host}" -> process id)
   --simulate <spec>    generate a simulated lane (key=val,...)
   --writeFQB <out>     write the last-read lane as packed fqb
   --hashInfo           table summary to stdout
@@ -59,10 +80,7 @@ Commands (executed in order):
   --cribReport         cluster purity vs the crib to stdout
   --help
 
-The multi-GPU and multi-process flags of hash10x_tpu (--hosts, --hostId,
---coordinator, --shards, --laneCapacity, --labelBlocks, --readFQBShard)
-exit with "not yet ported".  Every command is followed by a timing/RSS line
-on stderr.
+Every command is followed by a timing/RSS line on stderr.
 """
 
 from __future__ import annotations
@@ -73,10 +91,42 @@ from typing import List, Optional
 
 __all__ = ["main", "run"]
 
-# flags of the JAX package's CLI that this port does not run yet
-_NOT_PORTED = {
-    "--hosts", "--hostId", "--coordinator", "--shards", "--laneCapacity",
-    "--labelBlocks", "--readFQBShard"}
+
+def _bootstrap_multihost(argv: List[str]):
+    """Take --hosts/--hostId/--coordinator out of ``argv`` (defaults: the
+    H10X_* variables) and join the process group for more than one process.
+    Returns (the other arguments, number of processes, this process's id)."""
+    hosts = int(os.environ.get("H10X_NUM_PROCESSES", "1"))
+    host_id = int(os.environ.get("H10X_PROCESS_ID", "0"))
+    coord = os.environ.get("H10X_COORDINATOR")
+    rest = []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a in ("--hosts", "--hostId", "--coordinator"):
+            if i + 1 >= len(argv):
+                raise SystemExit(f"{a} requires an argument")
+            v = argv[i + 1]
+            if a == "--hosts":
+                hosts = int(v)
+            elif a == "--hostId":
+                host_id = int(v)
+            else:
+                coord = v
+            i += 2
+            continue
+        rest.append(a)
+        i += 1
+    if hosts > 1:
+        import torch
+        from ..dist import multihost
+        multihost.initialize(coord, hosts, host_id)
+        # processes sharing a host share its cores: without a share each,
+        # their thread pools and gloo's polling oversubscribe the host
+        # (a two-process CPU run measured ~30x slower)
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // hosts))
+        return rest, hosts, host_id
+    return rest, 1, 0
 
 
 class _State:
@@ -97,11 +147,18 @@ class _State:
         self.min_friend_share = 8
         self.max_friends = 0
         self.batch_reads = 4096
+        self.n_shards = 1
+        self.lane_capacity = 0
+        self.label_blocks = 0
         self.error_fix_min_reads = 0
+        self.hosts = 1
+        self.host_id = 0
+        self.is_coord = True
         self.metrics_path = None
         self.device_mem = False
         self.engine = None
         self.fqb = None
+        self.fqb_is_local = False
         self.crib = None
         self.profiler = None
         self.profile_dir = None
@@ -116,6 +173,9 @@ class _State:
                 raise SystemExit(
                     "--device cuda: no CUDA device is available; pass "
                     "--device cpu to run the plain torch path on the CPU")
+            if dev.type == "cuda" and self.hosts > 1 and dev.index is None:
+                dev = torch.device("cuda", self.host_id
+                                   % torch.cuda.device_count())
             cfg = EngineConfig(
                 spec=HashSpec(k=self.k, w=self.w, seed=self.seed),
                 mode=self.mode, syncmer_s=self.syncmer_s,
@@ -124,7 +184,9 @@ class _State:
                 max_count=self.max_count, cluster_mode=self.cluster_mode,
                 min_share=self.min_share,
                 min_friend_share=self.min_friend_share,
-                max_friends=self.max_friends,
+                max_friends=self.max_friends, n_shards=self.n_shards,
+                lane_capacity=self.lane_capacity,
+                cluster_label_blocks=self.label_blocks,
                 error_fix_min_reads=self.error_fix_min_reads)
             self.engine = Engine(cfg, dev, log=self.err)
             if self.metrics_path or self.device_mem:
@@ -143,6 +205,7 @@ class _State:
             cfg.min_friend_share = self.min_friend_share
             cfg.max_friends = self.max_friends
             cfg.batch_reads = self.batch_reads
+            cfg.cluster_label_blocks = self.label_blocks
             cfg.error_fix_min_reads = self.error_fix_min_reads
         return self.engine
 
@@ -190,10 +253,21 @@ def main(argv: Optional[List[str]] = None, out=None, err=None) -> int:
 
 def run(argv: List[str], out, err):
     """Execute the commands of ``argv`` in order; returns the engine they
-    ran on (None if no command needed one).  A profiler started by
+    ran on (None if no command needed one).  With --hosts > 1 the process
+    joins the process group first and leaves it at the end; processes other
+    than 0 write nothing to ``out`` and no file.  A profiler started by
     ``--profile`` is stopped, and the metrics file closed, however the
     commands end."""
+    argv, hosts, host_id = _bootstrap_multihost(list(argv))
     st = _State(err)
+    st.hosts, st.host_id = hosts, host_id
+    st.is_coord = host_id == 0
+    if hosts > 1:
+        st.n_shards = hosts
+    sink = None
+    if not st.is_coord:
+        # every process enters every collective; only process 0 reports
+        out = sink = open(os.devnull, "w")
     try:
         _execute(argv, out, st)
     finally:
@@ -201,6 +275,11 @@ def run(argv: List[str], out, err):
             st.profiler.stop()
         if st.engine is not None:
             st.engine.timer.close()
+        if sink is not None:
+            sink.close()
+        if hosts > 1:
+            from ..dist import multihost
+            multihost.shutdown()
     if st.profiler is not None:
         err.write(f"[profile] trace written to {st.profile_dir}\n")
     return st.engine
@@ -256,17 +335,29 @@ def _execute(argv: List[str], out, st: _State) -> None:
             st.max_friends = int(need(1, a)[0])
         elif a == "--batchReads":
             st.batch_reads = int(need(1, a)[0])
+        elif a == "--shards":
+            st.param_change_guard(); st.n_shards = int(need(1, a)[0])
+        elif a == "--laneCapacity":
+            # a lane capacity grown by an overflow retry stays until this
+            # flag sets another
+            st.lane_capacity = int(need(1, a)[0])
+            if st.engine is not None:
+                st.engine.cfg.lane_capacity = st.lane_capacity
+        elif a == "--labelBlocks":
+            st.label_blocks = int(need(1, a)[0])
         elif a == "--errorFixReads":
             st.error_fix_min_reads = int(need(1, a)[0])
         elif a == "--metrics":
-            st.metrics_path = need(1, a)[0]
+            path = need(1, a)[0]
+            if st.is_coord:
+                st.metrics_path = path
         elif a == "--devMem":
             st.device_mem = True
         elif a == "--profile":
             # a torch.profiler trace of everything after this flag; a
             # second --profile is accepted and ignored
             directory = need(1, a)[0]
-            if st.profiler is None:
+            if st.profiler is None and st.is_coord:
                 st.profiler = _start_profiler(directory)
                 st.profile_dir = directory
         elif a == "-t":
@@ -281,7 +372,14 @@ def _execute(argv: List[str], out, st: _State) -> None:
             st.get_engine().count(st.fqb)
         elif a == "--readFQB":
             st.fqb = FB.load_fqb(need(1, a)[0])
+            st.fqb_is_local = False
             st.get_engine().count(st.fqb)
+        elif a == "--readFQBShard":
+            # each process loads only its own barcode-disjoint shard file
+            path = need(1, a)[0].replace("{host}", str(st.host_id))
+            st.fqb = FB.load_fqb(path)
+            st.fqb_is_local = True
+            st.get_engine().count(st.fqb, local_shard=True)
         elif a == "--simulate":
             sim = simulate(_parse_sim(need(1, a)[0]))
             st.fqb = FB.from_read_batch(sim.reads)
@@ -289,9 +387,15 @@ def _execute(argv: List[str], out, st: _State) -> None:
         elif a == "--writeFQB":
             if st.fqb is None:
                 raise SystemExit("--writeFQB: no reads loaded")
-            FB.save_fqb(need(1, a)[0], st.fqb)
+            path = need(1, a)[0]
+            if st.is_coord:
+                FB.save_fqb(path, st.fqb)
         elif a == "--writeHash":
-            st.get_engine().save(need(1, a)[0])
+            path = need(1, a)[0]
+            eng = st.get_engine()
+            eng.host_materialize()  # collectives: every process enters
+            if st.is_coord:
+                eng.save(path)
         elif a == "--readHash":
             st.get_engine().load(need(1, a)[0])
         elif a == "--errorFix":
@@ -300,17 +404,21 @@ def _execute(argv: List[str], out, st: _State) -> None:
             st.get_engine().info(out)
         elif a == "--hashDist":
             st.get_engine().write_histogram(out)
-        elif a == "--writeCounts":
-            with open(need(1, a)[0], "w") as f:
-                st.get_engine().write_counts(f)
-        elif a == "--writeClusters":
-            with open(need(1, a)[0], "w") as f:
-                st.get_engine().write_clusters(f)
+        elif a in ("--writeCounts", "--writeClusters"):
+            path = need(1, a)[0]
+            eng = st.get_engine()
+            eng.host_materialize()  # collectives: every process enters
+            if st.is_coord:
+                with open(path, "w") as f:
+                    if a == "--writeCounts":
+                        eng.write_counts(f)
+                    else:
+                        eng.write_clusters(f)
         elif a in ("--cluster", "--codeClusters"):
             eng = st.get_engine()
             if st.fqb is not None:
                 eng.filter(st.min_count, st.max_count)
-                eng.incidence(st.fqb)
+                eng.incidence(st.fqb, local_shard=st.fqb_is_local)
             elif eng.inc is None:
                 raise SystemExit("--codeClusters: no reads loaded for "
                                  "incidence (and no incidence in a loaded "
@@ -339,9 +447,6 @@ def _execute(argv: List[str], out, st: _State) -> None:
                                  "--codeClusters")
             n = crib_report(eng.inc, eng.cluster_labels, st.crib, out)
             eng.timer.stage(f"cribReport: {n} clusters")
-        elif a in _NOT_PORTED:
-            raise SystemExit(f"{a}: not yet ported to hash10x_tpu_torch "
-                             "(run it with python -m hash10x_tpu)")
         else:
             raise SystemExit(f"unknown argument {a!r} (see --help)")
         i += 1

@@ -23,7 +23,10 @@ from .table.incidence import Incidence
 __all__ = ["keys_from_numpy", "table_from_numpy", "incidence_from_numpy",
            "labels_from_numpy",
            "engine_state_from_numpy", "keys_to_numpy", "to_numpy",
-           "incidence_to_numpy", "incidence_from_npz"]
+           "incidence_to_numpy", "incidence_from_npz",
+           "sharded_table_from_numpy", "sharded_table_to_numpy",
+           "retained_sharded_from_numpy", "retained_sharded_to_numpy",
+           "sharded_incidence_from_numpy", "sharded_incidence_to_numpy"]
 
 _INC_FIELDS = (("code_offsets", np.int64), ("code_kmers", np.int32),
                ("kmer_offsets", np.int64), ("kmer_codes", np.int32))
@@ -128,3 +131,87 @@ def incidence_from_npz(z, prefix: str, shape, device) -> Incidence:
         return torch.from_numpy(z[prefix + name].astype(np.int64)).to(device)
     return Incidence(int(n_kmers), int(n_codes), t("code_offsets"),
                      t("code_kmers"), t("kmer_offsets"), t("kmer_codes"))
+
+
+# -- sharded state: the JAX package's per-shard (n, C) arrays <-> the port's
+# per-local-shard tensors (this process's rows of a ShardGroup) -------------------
+
+def _rows_to_numpy(group, rows, dtype, pad, what) -> np.ndarray:
+    """(n, W) host array of every shard's 1-D rows (a collective)."""
+    g = group.all_gather_rows(group.stack_padded(rows, -1), pad=-1)
+    g = g.cpu().numpy()
+    out = np.full(g.shape, pad, dtype)
+    real = g >= 0
+    if real.any() and int(g[real].max()) > np.iinfo(dtype).max:
+        raise ValueError(f"{what} do not fit {np.dtype(dtype).name}")
+    out[real] = g[real].astype(dtype)
+    return out
+
+
+def sharded_table_from_numpy(hashes_u64: np.ndarray, counts_u32: np.ndarray,
+                             group, spec=None, routing: str = "range",
+                             range_eff=None):
+    """A port ShardedSortedTable holding row s of the JAX package's (n, C)
+    ``hashes``/``counts`` in shard s (U64MAX pads dropped)."""
+    from .dist.sharded_sorted import ShardedSortedTable
+    t = ShardedSortedTable(group, 1, 1, spec=spec, routing=routing,
+                           range_eff=range_eff)
+    for i in range(group.n_local):
+        s = group.lo + i
+        t.rows[i] = table_from_numpy(hashes_u64[s], counts_u32[s],
+                                     group.device)
+    return t
+
+
+def sharded_table_to_numpy(t):
+    """The JAX package's (n, C) uint64 hashes (U64MAX pads) and uint32
+    counts of a port ShardedSortedTable, every shard (a collective)."""
+    t.flush()
+    rows = [t.local_compact(i) for i in range(len(t.rows))]
+    return (_rows_to_numpy(t.group, [r[0] for r in rows], np.uint64,
+                           np.uint64(U64MAX), "hashes"),
+            _rows_to_numpy(t.group, [r[1] for r in rows], np.uint32, 0,
+                           "counts"))
+
+
+def retained_sharded_from_numpy(ret_sh, group):
+    """The JAX engine's ``_ret_sh`` (rows (n, R) uint64, counts (n, R),
+    offsets (n,), total) as the port engine's (this process's rows, counts,
+    offsets, total)."""
+    rows, crows, off, n = ret_sh
+    rows, crows = np.asarray(rows), np.asarray(crows)
+    h, c = [], []
+    for s in range(group.lo, group.hi):
+        real = rows[s] != np.uint64(U64MAX)
+        h.append(keys_from_numpy(rows[s][real], group.device))
+        c.append(torch.from_numpy(crows[s][real].astype(np.int32))
+                 .to(group.device))
+    return h, c, np.asarray(off, np.int64), int(n)
+
+
+def retained_sharded_to_numpy(ret_sh, group):
+    """The port engine's sharded retained set as (rows (n, R) uint64 with
+    U64MAX pads, counts (n, R) uint32, offsets, total) (a collective)."""
+    h, c, off, n = ret_sh
+    return (_rows_to_numpy(group, h, np.uint64, np.uint64(U64MAX), "hashes"),
+            _rows_to_numpy(group, c, np.uint32, 0, "counts"), off, n)
+
+
+def sharded_incidence_from_numpy(keys_u64: np.ndarray, pair_counts,
+                                 n_kmers: int, n_codes: int, group,
+                                 code_bounds=None):
+    """A port ShardedIncidence from the JAX one's (n, Ppad) uint64 keys
+    (U64MAX pads) and per-shard pair counts."""
+    from .dist.sharded_inc import ShardedIncidence
+    keys = [keys_from_numpy(keys_u64[s], group.device)
+            for s in range(group.lo, group.hi)]
+    return ShardedIncidence(group, keys, np.asarray(pair_counts, np.int64),
+                            n_kmers, n_codes, code_bounds=code_bounds)
+
+
+def sharded_incidence_to_numpy(inc_sh):
+    """(keys (n, Ppad) uint64 with U64MAX pads, pair counts (n,)) of a port
+    ShardedIncidence (a collective)."""
+    return (_rows_to_numpy(inc_sh.group, inc_sh.keys, np.uint64,
+                           np.uint64(U64MAX), "pair keys"),
+            inc_sh.pair_counts.copy())

@@ -1,5 +1,5 @@
-"""Single-device pipeline engine: the stateful core behind the CLI — the
-port of ``hash10x_tpu/engine.py``.
+"""The pipeline engine: the stateful core behind the CLI — the port of
+``hash10x_tpu/engine.py``.
 
 Commands are methods run in order against one shared state, as in the
 reference's command language:
@@ -23,6 +23,15 @@ batch, which makes per-batch (hash, barcode) dedup exact: counts are
 *barcode counts* (``count_mode="barcodes"``) or raw emission counts
 (``count_mode="occurrences"``).  A barcode with more reads than a batch
 streams alone as a tagged group of batches.
+
+With ``n_shards > 1`` (``--shards``; ``--hosts`` spreads the shards over
+processes) count, filter, incidence, friend clustering, split and report run
+sharded (``dist/``, ``cluster/sparse_dist.py``): the count table, the
+retained band, the incidence and the labels stay shard-resident, and whole
+views (``table``, ``retained_hashes``, ``inc``, ``cluster_labels``,
+``split_inc``) are gathered only when an output command asks for them.
+Every gather is a collective, so in a multi-process run every process
+enters it (``host_materialize``).
 """
 
 from __future__ import annotations
@@ -39,6 +48,9 @@ from . import INT64_MAX
 from . import convert
 from .cluster import cooccur
 from .core.encode import unpack_2bit_torch
+from .dist import sharded_inc as SI
+from .dist import sharded_sorted as DS
+from .dist.group import ShardGroup
 from .hashspec import HashSpec
 from .io.fqb import Fqb
 from .kernels import minimizer
@@ -87,6 +99,15 @@ class EngineConfig:
     error_fix_min_reads: int = 0     # >0 (barcodes mode): error_fix rescues
                                      # error-band k-mers with at least this
                                      # many raw occurrences in the lane
+    n_shards: int = 1                # >1: count, filter, incidence, friend
+                                     # clustering, split and report run
+                                     # sharded (a power of two)
+    lane_capacity: int = 0           # sharded paths: send-lane slots per
+                                     # destination shard (0 = auto: expected
+                                     # load + slack; grows on overflow)
+    cluster_label_blocks: int = 0    # >0: sharded clustering propagates
+                                     # labels in barcode-aligned blocks of
+                                     # about this many pairs
 
 
 class Engine:
@@ -102,42 +123,132 @@ class Engine:
         self.cfg = cfg
         self.device = torch.device(device)
         self.table: Optional[st.SortedTable] = None
-        self.retained_hashes: Optional[torch.Tensor] = None
-        self.retained_counts: Optional[torch.Tensor] = None
+        # sharded state (n_shards > 1): count table, retained band (rows,
+        # counts, (n,) global offsets, total), incidence, labels, split
+        self._dt: Optional[DS.ShardedSortedTable] = None
+        self._ret_sh = None
+        self._inc_sh: Optional[SI.ShardedIncidence] = None
+        self._labels_sh: Optional[SI.ShardedLabels] = None
+        self._split_inc_sh: Optional[SI.ShardedIncidence] = None
+        self._group: Optional[ShardGroup] = None
+        self._global_n_barcodes = 0   # multi-process --readFQBShard lanes
+        self.retained_hashes = None
+        self.retained_counts = None
         self._inc: Optional[Incidence] = None
         self._set_labels(None)
         self.n_reads_counted = 0
         self._read_len = 0
-        self._lane_cache = None  # (fqb, device lane, spans)
+        self._lane_cache = None  # (fqb, batch size, device lane, spans)
         self.timer = StageTimer(log, device=self.device)
 
-    # -- incidence and the state derived from it ------------------------------
+    # -- whole views of the (possibly sharded) state -------------------------------
+
+    @property
+    def retained_hashes(self) -> Optional[torch.Tensor]:
+        """The count band's hashes, ascending (gathered once from the shards
+        on the sharded path)."""
+        if self._retained is None and self._ret_sh is not None:
+            self._gather_retained()
+        return self._retained
+
+    @retained_hashes.setter
+    def retained_hashes(self, v) -> None:
+        self._retained = v
+        self._ret_sh = None
+
+    @property
+    def retained_counts(self) -> Optional[torch.Tensor]:
+        if self._retained_counts is None and self._ret_sh is not None:
+            self._gather_retained()
+        return self._retained_counts
+
+    @retained_counts.setter
+    def retained_counts(self, v) -> None:
+        self._retained_counts = v
+
+    def _gather_retained(self) -> None:
+        """Shards own ascending ranges: the gather is a concatenation."""
+        rows, crows, _, _ = self._ret_sh
+        g = self._shard_group()
+        h = g.all_gather_rows(g.stack_padded(rows, INT64_MAX),
+                              pad=INT64_MAX).reshape(-1)
+        c = g.all_gather_rows(g.stack_padded(crows, -1), pad=-1).reshape(-1)
+        self._retained = h[h != INT64_MAX]
+        self._retained_counts = c[c >= 0]
 
     @property
     def inc(self) -> Optional[Incidence]:
+        """The whole incidence (gathered once from the shards on the sharded
+        path)."""
+        if self._inc is None and self._inc_sh is not None:
+            self._inc = self._inc_sh.to_host()
         return self._inc
 
     @inc.setter
     def inc(self, v: Optional[Incidence]) -> None:
         """A new incidence invalidates every label-derived result."""
         self._inc = v
+        self._inc_sh = None
         self._set_labels(None)
 
-    def _set_labels(self, labels: Optional[torch.Tensor]) -> None:
-        """New labels invalidate the split and the molecule stats."""
-        self.cluster_labels = labels
-        self.split_inc: Optional[Incidence] = None
+    def _set_inc_sh(self, v: SI.ShardedIncidence) -> None:
+        self._inc = None
+        self._inc_sh = v
+        self._set_labels(None)
+
+    def _inc_any(self):
+        return self._inc_sh if self._inc_sh is not None else self._inc
+
+    @property
+    def cluster_labels(self) -> Optional[torch.Tensor]:
+        """Flat labels aligned with the forward CSR (gathered once from the
+        shards on the sharded path)."""
+        if self._labels is None and self._labels_sh is not None:
+            self._labels = self._labels_sh.to_host()
+        return self._labels
+
+    def _has_labels(self) -> bool:
+        return self._labels is not None or self._labels_sh is not None
+
+    @property
+    def split_inc(self) -> Optional[Incidence]:
+        if self._split_inc is None and self._split_inc_sh is not None:
+            self._split_inc = self._split_inc_sh.to_host()
+        return self._split_inc
+
+    @split_inc.setter
+    def split_inc(self, v: Optional[Incidence]) -> None:
+        self._split_inc = v
+        self._split_inc_sh = None
+
+    def _set_labels(self, labels) -> None:
+        """New labels (a tensor, ShardedLabels or None) invalidate the split
+        and the molecule stats."""
+        if isinstance(labels, SI.ShardedLabels):
+            self._labels, self._labels_sh = None, labels
+        else:
+            self._labels, self._labels_sh = labels, None
+        self.split_inc = None
         self.split_origin: Optional[torch.Tensor] = None
         self._mol_cache = None  # (sorted code*K+label, sizes, K)
 
+    def host_materialize(self) -> None:
+        """Gather every whole view an output command may read.  Gathers are
+        collectives: in a multi-process run every process enters this before
+        the coordinator alone writes."""
+        self._flushed()
+        for view in ("retained_hashes", "inc", "cluster_labels", "split_inc"):
+            getattr(self, view)
+
     # -- batching --------------------------------------------------------------
 
-    def _spans(self, fqb: Fqb):
+    def _spans(self, fqb: Fqb, bsz: int = 0):
         """Barcode-sorted read order and batch spans (a, b, group) of at most
-        ``batch_reads`` reads, boundaries aligned so one barcode never
-        straddles a batch; a barcode with more reads than a batch streams
-        alone as consecutive spans sharing a group id (None otherwise)."""
-        bsz = self.cfg.batch_reads
+        ``bsz`` (default ``batch_reads``) reads, boundaries aligned so one
+        barcode never straddles a batch; a barcode with more reads than a
+        batch streams alone as consecutive spans sharing a group id (None
+        otherwise)."""
+        bsz = bsz or self.cfg.batch_reads
         order = np.argsort(fqb.barcode_ids, kind="stable")
         bc_all = fqb.barcode_ids[order]
         n = len(bc_all)
@@ -165,13 +276,16 @@ class Engine:
             i = j
         return order, spans
 
-    def _lane(self, fqb: Fqb):
+    def _lane(self, fqb: Fqb, bsz: int = 0):
         """The barcode-sorted lane on the device (packed words as int32,
-        lengths, barcode ids, N mask or None) and its batch spans.  Cached
-        for the lane last seen, so the incidence pass re-reads nothing."""
-        if self._lane_cache is not None and self._lane_cache[0] is fqb:
-            return self._lane_cache[1], self._lane_cache[2]
-        order, spans = self._spans(fqb)
+        lengths, barcode ids, N mask or None) and its batch spans of ``bsz``
+        reads.  Cached for the lane last seen, so the incidence pass re-reads
+        nothing."""
+        bsz = bsz or self.cfg.batch_reads
+        c = self._lane_cache
+        if c is not None and c[0] is fqb and c[1] == bsz:
+            return c[2], c[3]
+        order, spans = self._spans(fqb, bsz)
         dev = self.device
 
         def put(a, dtype):
@@ -180,7 +294,7 @@ class Engine:
         lane = (put(fqb.packed, np.int32), put(fqb.lengths, np.int32),
                 put(fqb.barcode_ids.astype(np.int64), np.int64),
                 put(fqb.nmask, np.int32) if fqb.nmask is not None else None)
-        self._lane_cache = (fqb, lane, spans)
+        self._lane_cache = (fqb, bsz, lane, spans)
         return lane, spans
 
     def _compact_rows(self, P: int) -> int:
@@ -241,13 +355,21 @@ class Engine:
 
     # -- count pass --------------------------------------------------------------
 
-    def count(self, fqb: Fqb) -> None:
+    def count(self, fqb: Fqb, local_shard: bool = False) -> None:
         """Count pass: every batch is sketched, pre-reduced and buffered into
         the count table.  Barcodes mode keys on (hash, distinct-barcode
         count) pairs; an oversized barcode's batches dedup through a side
         table, so each of its distinct hashes enters once.  Occurrences mode
         counts every emission, reads without a barcode included, and its
-        groups fold into the normal stream."""
+        groups fold into the normal stream.
+
+        ``local_shard`` (multi-process runs only): ``fqb`` is this process's
+        barcode-disjoint shard of the lane, not the whole lane."""
+        if self.cfg.n_shards > 1:
+            return self._count_sharded(fqb, local_shard)
+        if local_shard:
+            raise ValueError("local_shard input requires --shards over a "
+                             "multi-process group")
         self._read_len = fqb.read_len
         P = self._read_len - self.cfg.spec.k + 1
         C = self._compact_rows(P)
@@ -297,21 +419,48 @@ class Engine:
         self.table = st.merge_counts(self.table, keys, torch.ones_like(keys))
 
     def _flushed(self) -> st.SortedTable:
+        if self.table is None and self._dt is not None:
+            self._gather_table()
         if self.table is None:
             raise RuntimeError("no count table (read a lane first)")
         self.table = st.flush_grow(self.table)
         return self.table
 
+    def _sharded_table(self) -> Optional[DS.ShardedSortedTable]:
+        return self._dt if self.table is None else None
+
+    def _gather_table(self) -> None:
+        """The sharded count table as one table (commands that need the
+        whole table: save, --writeCounts, errorFix); filter, incidence,
+        histogram and info stay sharded.  A collective."""
+        if self._ret_sh is not None and self._retained is None:
+            self._gather_retained()   # before the sharded state goes
+        h, c = DS.gather_sorted_compact(self._dt)
+        self._dt = None
+        self._ret_sh = None
+        cap = 1 << self.cfg.table_bits
+        self.table = st.merge_counts(
+            st.make_sorted_table(cap, cap, self.device), h, c)
+
     def histogram(self, max_count: int = 256) -> np.ndarray:
+        dt = self._sharded_table()
+        if dt is not None:
+            return DS.sorted_histogram(dt, max_count)
         t = self._flushed()
         return st.count_histogram(t.hashes, t.counts, max_count).cpu().numpy()
 
     def info(self, out=sys.stdout) -> None:
         hist = self.histogram()
         total = int(hist.sum())
-        t = self.table
-        # the table grows instead of spilling, so its overflow is always 0
-        out.write(f"table slots {t.capacity} kmers {t.n_filled} overflow 0\n")
+        dt = self._sharded_table()
+        # tables grow instead of spilling, so the overflow is always 0
+        if dt is not None:
+            out.write(f"table slots {dt.n_shards * dt.capacity()} "
+                      f"kmers {dt.n_filled()} overflow 0\n")
+        else:
+            t = self.table
+            out.write(f"table slots {t.capacity} kmers {t.n_filled} "
+                      "overflow 0\n")
         nz = np.nonzero(hist)[0]
         if len(nz):
             out.write(f"count range [{nz.min()}, {nz.max()}] distinct kmers {total}\n")
@@ -327,14 +476,18 @@ class Engine:
         """Sorted (hashes, raw occurrence counts) of the lane under the
         current sketch parameters: a second count pass in occurrences mode
         that leaves the count table and ``n_reads_counted`` as they were."""
-        saved = (self.table, self.n_reads_counted, self.cfg.count_mode)
-        self.table = None
+        saved = (self.table, self._dt, self._ret_sh, self._retained,
+                 self._retained_counts, self.n_reads_counted,
+                 self.cfg.count_mode)
+        self.table = self._dt = None
         try:
             self.cfg.count_mode = "occurrences"
             self.count(fqb)
             return st.compact(self._flushed())
         finally:
-            self.table, self.n_reads_counted, self.cfg.count_mode = saved
+            (self.table, self._dt, self._ret_sh, self._retained,
+             self._retained_counts, self.n_reads_counted,
+             self.cfg.count_mode) = saved
 
     def error_fix(self, max_count: int = 1, fqb: Optional[Fqb] = None,
                   min_reads: int = 0) -> None:
@@ -375,6 +528,8 @@ class Engine:
         """Keep the k-mers whose count lies in the band [lo, hi]."""
         lo = min_count or self.cfg.min_count
         hi = max_count or self.cfg.max_count
+        if self._sharded_table() is not None:
+            return self._filter_sharded(lo, hi)
         self.retained_hashes, self.retained_counts = st.compact(
             self._flushed(), lo, hi)
         self.timer.stage(f"filter [{lo},{hi}]: "
@@ -382,13 +537,19 @@ class Engine:
 
     # -- incidence, clusters, split, report --------------------------------------
 
-    def incidence(self, fqb: Fqb) -> None:
+    def incidence(self, fqb: Fqb, local_shard: bool = False) -> None:
         """Second pass: the deduplicated k-mer x barcode incidence.  Lanes
         whose (barcode, hash) pair fits one int63 key buffer combined keys
         and rank them once at the end; others join each batch against the
-        retained set."""
-        if self.retained_hashes is None:
+        retained set.  ``n_shards > 1``: the sharded pass
+        (``_incidence_sharded``)."""
+        if self._retained is None and self._ret_sh is None:
             self.filter()
+        if self.cfg.n_shards > 1:
+            return self._incidence_sharded(fqb, local_shard)
+        if local_shard:
+            raise ValueError("local_shard input requires --shards over a "
+                             "multi-process group")
         self._read_len = fqb.read_len
         retained = self.retained_hashes
         n_kmers = retained.shape[0]
@@ -425,15 +586,33 @@ class Engine:
         """Per-barcode molecule clustering (``--codeClusters``) in the
         configured mode: uncapped friend (the sparse pipeline), capped
         friend or pair (``cluster/cooccur.py``)."""
-        inc = self.inc
-        if inc is None:
+        inc_any = self._inc_any()
+        if inc_any is None:
             raise RuntimeError("cluster requires incidence (run incidence first)")
         cfg = self.cfg
-        labels = cooccur.cluster_codes(
-            inc, min_share=min_share or cfg.min_share, mode=cfg.cluster_mode,
-            min_friend_share=cfg.min_friend_share,
-            max_friends=cfg.max_friends)
-        self._set_labels(labels)
+        if ((cfg.n_shards > 1 or self._inc_sh is not None)
+                and cfg.cluster_mode == "friend" and cfg.max_friends == 0):
+            from .cluster.sparse_dist import cluster_codes_sparse_dist
+            # blocked propagation where one label vector would be large
+            blocks = cfg.cluster_label_blocks
+            if not blocks and inc_any.n_pairs > (1 << 28):
+                blocks = 1 << 26
+            labels = cluster_codes_sparse_dist(
+                inc_any, self._shard_group(),
+                min_friend_share=cfg.min_friend_share,
+                label_block_pairs=blocks, flat=True)
+            self._set_labels(labels)
+            if isinstance(labels, SI.ShardedLabels):
+                self.timer.stage(f"cluster: {labels.n_molecules} molecules "
+                                 f"over {inc_any.n_codes} codes")
+                return
+        else:
+            labels = cooccur.cluster_codes(
+                self.inc, min_share=min_share or cfg.min_share,
+                mode=cfg.cluster_mode, min_friend_share=cfg.min_friend_share,
+                max_friends=cfg.max_friends)
+            self._set_labels(labels)
+        inc = self.inc
         n_cl = 0
         if inc.n_pairs:
             # labels are canonical per-code ranks: molecules = sum(max + 1)
@@ -447,8 +626,10 @@ class Engine:
         """Remap (code, cluster) -> new molecule codes (``--clusterSplit``):
         new ids are the dense ranks of the distinct (code, label) pairs in
         ascending order, the oracle's ``split_codes`` numbering."""
-        if self.cluster_labels is None:
+        if not self._has_labels():
             raise RuntimeError("split requires clusters")
+        if self._labels_sh is not None and self._inc_sh is not None:
+            return self._split_sharded()
         inc = self.inc
         if inc.n_pairs == 0:
             self.split_inc = incidence_from_sorted_pairs(
@@ -471,8 +652,10 @@ class Engine:
     def report(self, out=sys.stdout) -> None:
         """Cluster report (``--clusterReport``): one line per code with its
         k-mer count, cluster count and cluster sizes."""
-        if self.cluster_labels is None:
+        if not self._has_labels():
             raise RuntimeError("report requires clusters")
+        if self._labels_sh is not None and self._inc_sh is not None:
+            return self._report_sharded(out)
         inc = self.inc
         if self._mol_cache is None:  # split computes it on the way
             K = int(self.cluster_labels.max()) + 1 if inc.n_pairs else 1
@@ -503,6 +686,300 @@ class Engine:
             f"{c}\t{h:x}\t{l}\n" for c, h, l in
             zip(inc.code_of_pair().tolist(), hashes.tolist(),
                 self.cluster_labels.tolist())))
+
+    # -- sharded paths (n_shards > 1) ------------------------------------------
+
+    def _shard_group(self) -> ShardGroup:
+        """The group of ``n_shards`` shards over this run's processes."""
+        n = self.cfg.n_shards
+        if self._inc_sh is not None:
+            n = self._inc_sh.n
+        if self._group is None or self._group.n_shards != n:
+            self._group = ShardGroup.of_process(n, self.device)
+        return self._group
+
+    def _rows(self, lane, lo: int, m: int, rows: int):
+        """Reads ``[lo, lo + m)`` of the device lane as ``rows`` rows of
+        (codes, lengths, barcode ids), padded with empty reads."""
+        packed, lengths, bcs, nmask = lane
+
+        def take(x, fill):
+            part = x[lo:lo + m]
+            if m == rows:
+                return part
+            return torch.cat([part, x.new_full((rows - m,) + x.shape[1:],
+                                               fill)])
+        codes = unpack_2bit_torch(take(packed, 0), self._read_len,
+                                  None if nmask is None else take(nmask, 0))
+        return codes, take(lengths, 0), take(bcs, -1)
+
+    def _sharded_batches(self, fqb: Fqb, local_shard: bool):
+        """This process's rows of every global batch: (codes, lengths,
+        barcode ids, group id).  The whole lane loaded by every process:
+        every process computes the same schedule and takes rows
+        ``[rank * B / world, (rank + 1) * B / world)`` of each batch."""
+        if local_shard:
+            yield from self._local_shard_batches(fqb)
+            return
+        g = self._shard_group()
+        per = self.cfg.batch_reads // g.world
+        lane, spans = self._lane(fqb)
+        for a, b, gid in spans:
+            lo = a + g.rank * per
+            yield (*self._rows(lane, lo, min(max(b - lo, 0), per), per), gid)
+
+    def _local_shard_batches(self, fqb: Fqb):
+        """Per-process input shards: each process holds its own
+        barcode-disjoint reads (checked by gathering every barcode key) and
+        fills its row block of every global batch.  Global barcode ids are
+        ranks in the global key set, the ids one process would give the
+        whole lane.  In barcodes mode an oversized barcode's batches become
+        global batches of their own process (the others send empty rows), so
+        its side table sees only its reads.  Sets ``_global_n_barcodes``.
+        (The JAX feed also ORs per-batch flags over the processes to pick one
+        jit variant; the CUDA kernel takes short reads and N bases, so the
+        port has no per-batch variant to agree on.)"""
+        g = self._shard_group()
+        bsz = self.cfg.batch_reads
+        per = bsz // g.world
+        rls = g.host_allgather(np.array([fqb.read_len], np.int64)).reshape(-1)
+        if not (rls == rls[0]).all():
+            raise ValueError("shard files disagree on read_len: "
+                             f"{rls.tolist()}")
+        counts = g.host_allgather(
+            np.array([fqb.n_barcodes], np.int64)).reshape(-1)
+        self._global_n_barcodes = int(counts.sum())
+        maxb = max(int(counts.max()), 1)
+        pad_keys = np.zeros(maxb, np.int64)
+        pad_keys[:fqb.n_barcodes] = fqb.barcode_keys.astype(np.int64)
+        all_keys = g.host_allgather(pad_keys)
+        sorted_keys = np.sort(np.concatenate(
+            [all_keys[p, :counts[p]] for p in range(len(counts))]))
+        if (sorted_keys[1:] == sorted_keys[:-1]).any():
+            raise ValueError(
+                "per-process fqb shards share barcodes; shard files must be "
+                "barcode-disjoint (split the lane by barcode)")
+        l2g = torch.from_numpy(np.searchsorted(
+            sorted_keys, fqb.barcode_keys.astype(np.int64)).astype(np.int64)
+            if fqb.n_barcodes else np.zeros(1, np.int64)).to(self.device)
+        lane, spans = self._lane(fqb, per)
+        if self.cfg.count_mode == "barcodes":
+            normal = [(a, e) for a, e, gid in spans if gid is None]
+            groups, last = [], None
+            for a, e, gid in spans:
+                if gid is None:
+                    continue
+                if groups and last == gid:
+                    groups[-1].append((a, e))
+                else:
+                    groups.append([(a, e)])
+                last = gid
+        else:
+            normal, groups = [(a, e) for a, e, _ in spans], []
+        shapes = g.host_allgather(np.array([len(normal), len(groups)],
+                                           np.int64)).reshape(-1, 2)
+        sizes = np.zeros(max(int(shapes[:, 1].max(initial=0)), 1), np.int64)
+        sizes[:len(groups)] = [len(x) for x in groups]
+        all_sizes = g.host_allgather(sizes)
+        # the global schedule, the same on every process: every normal
+        # batch, then each process's groups in (process, group) order
+        sched = [("n", b) for b in range(int(shapes[:, 0].max(initial=0)))]
+        gctr = 0
+        for p in range(g.world):
+            for gi in range(int(shapes[p, 1])):
+                gctr += 1
+                sched += [("g", p, gi, j, gctr)
+                          for j in range(int(all_sizes[p, gi]))]
+        for item in sched:
+            if item[0] == "n":
+                span = normal[item[1]] if item[1] < len(normal) else None
+            else:
+                span = groups[item[2]][item[3]] if item[1] == g.rank else None
+            a, e = span if span is not None else (0, 0)
+            codes, ln, bc = self._rows(lane, a, e - a, per)
+            bc = torch.where(bc >= 0, l2g[bc.clamp(min=0)], -1)
+            yield codes, ln, bc, item[4] if item[0] == "g" else None
+
+    def _count_step(self, g: ShardGroup, count_mode: str, **retained):
+        cfg = self.cfg
+        return DS.SortedCountStep(
+            cfg.spec, g, mode=cfg.mode, modulus=cfg.modulus,
+            syncmer_s=cfg.syncmer_s, lane_capacity=cfg.lane_capacity,
+            count_mode=count_mode,
+            compact_to=self._compact_rows(self._read_len - cfg.spec.k + 1),
+            **retained)
+
+    def _sharded_table_for(self, g: ShardGroup, step, routing="range"):
+        """A sharded table whose buffers hold ``_FLUSH_BATCHES`` batches."""
+        cfg = self.cfg
+        cap = max((1 << cfg.table_bits) // cfg.n_shards, 1 << 14)
+        width = step.recv_width(cfg.batch_reads, self._read_len)
+        buf = 1 << max(int(2 * self._FLUSH_BATCHES * width - 1).bit_length(),
+                       14)
+        return DS.ShardedSortedTable(g, cap, buf, spec=cfg.spec,
+                                     routing=routing)
+
+    def _lane_retry(self, what: str, once, *args) -> None:
+        """Run a sharded pass; on lane overflow run it again with doubled
+        lanes (the counts of a pass with drops cannot be patched), at most
+        three times.  The grown ``lane_capacity`` stays for later passes."""
+        cfg = self.cfg
+        for attempt in range(4):
+            try:
+                return once(*args)
+            except DS.LaneOverflowError as e:
+                if attempt == 3:
+                    raise
+                cfg.lane_capacity = 2 * (cfg.lane_capacity or e.auto_cap
+                                         or 8192)
+                self.timer.stage(f"{what}[sharded]: lane overflow ({e}); "
+                                 "retrying with --laneCapacity "
+                                 f"{cfg.lane_capacity}")
+
+    def _check_sharded_batch(self, g: ShardGroup) -> None:
+        bsz = self.cfg.batch_reads
+        if bsz % self.cfg.n_shards:
+            raise ValueError("batch_reads must be divisible by n_shards")
+        if bsz % g.world:
+            raise ValueError("batch_reads must be divisible by the process "
+                             "count")
+
+    def _count_sharded(self, fqb: Fqb, local_shard: bool) -> None:
+        self._lane_retry("count", self._count_sharded_once, fqb, local_shard)
+
+    def _count_sharded_once(self, fqb: Fqb, local_shard: bool) -> None:
+        """Sharded count pass: every process sketches its rows of each
+        global batch, emissions route to their hash-range owner shards, and
+        oversized barcodes stream through a side table (occurrences, same
+        splitters) whose distinct keys merge in shard-locally at the group's
+        end.  The table stays sharded for filter and incidence."""
+        cfg = self.cfg
+        g = self._shard_group()
+        self._check_sharded_batch(g)
+        self._read_len = fqb.read_len
+        step = self._count_step(g, cfg.count_mode)
+        dt = self._sharded_table_for(g, step)
+        side = side_step = None
+        cur = None
+        for codes, ln, bc, gid in self._sharded_batches(fqb, local_shard):
+            if gid is not None and cfg.count_mode == "barcodes":
+                if side_step is None:
+                    side_step = self._count_step(g, "occurrences")
+                if gid != cur and side is not None:
+                    dt = DS.merge_group(dt, side)
+                    side = None
+                cur = gid
+                if side is None:
+                    side = self._sharded_table_for(g, side_step)
+                side = side_step(side, codes, ln, bc)
+                continue
+            if side is not None:
+                dt = DS.merge_group(dt, side)
+                side, cur = None, None
+            dt = step(dt, codes, ln, bc)
+        if side is not None:
+            dt = DS.merge_group(dt, side)
+        dt = step.finish(dt)
+        drops = DS.host_sum(g, dt.drops)
+        if drops:
+            raise DS.LaneOverflowError(
+                f"sharded count dropped {drops} emissions (lane/cap "
+                "overflow)", auto_cap=cfg.lane_capacity or step.auto_lane_cap(
+                    cfg.batch_reads, fqb.read_len))
+        if DS.host_sum(g, dt.sketch_over):
+            self._raise_overflow("count")
+        n_new = int((fqb.lengths > 0).sum())
+        if local_shard:
+            n_new = int(g.host_allgather(np.array([n_new], np.int64)).sum())
+        self.n_reads_counted += n_new
+        self.table, self._dt = None, dt
+        self._ret_sh = None
+        tag = (f" over {g.world} {g.backend} processes" if g.world > 1
+               else "")
+        self.timer.stage(f"count[sharded x{cfg.n_shards}{tag}]: "
+                         f"{self.n_reads_counted} reads, {dt.n_filled()} "
+                         "kmers")
+
+    def _filter_sharded(self, lo: int, hi: int) -> None:
+        """The band, shard-side: the retained set stays sharded (ascending
+        ranges, so local rank + shard offset is the canonical k-mer id)."""
+        dt = self._dt.flush()
+        g = dt.group
+        rows, crows = [], []
+        for i in range(g.n_local):
+            h, c = dt.local_compact(i)
+            keep = (c >= lo) & (c <= hi)
+            rows.append(h[keep])
+            crows.append(c[keep])
+        per = g.gather_counts([r.shape[0] for r in rows])
+        off = np.concatenate([[0], np.cumsum(per)])[:-1].astype(np.int64)
+        self._retained = self._retained_counts = None
+        self._ret_sh = (rows, crows, off, int(per.sum()))
+        self.timer.stage(f"filter[sharded x{dt.n_shards}] [{lo},{hi}]: "
+                         f"{int(per.sum())} kmers kept")
+
+    def _incidence_sharded(self, fqb: Fqb, local_shard: bool) -> None:
+        self._lane_retry("incidence", self._incidence_sharded_once, fqb,
+                         local_shard)
+
+    def _incidence_sharded_once(self, fqb: Fqb, local_shard: bool) -> None:
+        """Sharded incidence: (hash, barcode) emissions route to the hash's
+        range owner, which holds only its slice of the retained set and
+        keys the pair with the canonical k-mer rank; pair keys route by low
+        bits to dedup owners; one more all_to_all lays the pair set out as
+        code-range forward-CSR slices (``build_sharded_incidence``)."""
+        cfg = self.cfg
+        g = self._shard_group()
+        self._check_sharded_batch(g)
+        self._read_len = fqb.read_len
+        if self._ret_sh is not None:
+            rows, _, off, n_kmers = self._ret_sh
+            step = self._count_step(g, "occurrences",
+                                    pair_retained_sharded=(rows, off, n_kmers))
+        else:
+            n_kmers = int(self.retained_hashes.shape[0])
+            step = self._count_step(g, "occurrences",
+                                    pair_retained=self.retained_hashes)
+        dt = self._sharded_table_for(g, step, routing="low")
+        # group tags do not matter here: the pair table dedups globally
+        for codes, ln, bc, _ in self._sharded_batches(fqb, local_shard):
+            dt = step(dt, codes, ln, bc)
+        dt = step.finish(dt)
+        drops = DS.host_sum(g, dt.drops)
+        if drops:
+            raise DS.LaneOverflowError(
+                f"sharded incidence dropped {drops} pair keys (lane/cap "
+                "overflow)", auto_cap=cfg.lane_capacity or step.auto_lane_cap(
+                    cfg.batch_reads, fqb.read_len))
+        if DS.host_sum(g, dt.sketch_over):
+            self._raise_overflow("incidence")
+        n_codes = self._global_n_barcodes if local_shard else fqb.n_barcodes
+        self._set_inc_sh(SI.build_sharded_incidence(dt, n_kmers, n_codes))
+        self.timer.stage(f"incidence[sharded x{cfg.n_shards}]: "
+                         f"{self._inc_sh.n_pairs} pairs, {n_codes} codes x "
+                         f"{n_kmers} kmers")
+
+    def _split_sharded(self) -> None:
+        """``--clusterSplit`` over sharded labels: the split pair set stays
+        sharded; only the (molecules, 2) origin table is gathered."""
+        codes_m, labels_m, _ = self._labels_sh.molecule_stats(self._inc_sh)
+        split_sh = SI.split_sharded(self._inc_sh, self._labels_sh)
+        self.split_inc = None
+        self._split_inc_sh = split_sh
+        self.split_origin = torch.from_numpy(
+            np.stack([codes_m, labels_m], axis=1)).to(self.device)
+        self.timer.stage(f"split: {len(codes_m)} molecule codes")
+
+    def _report_sharded(self, out) -> None:
+        """The report from per-molecule statistics reduced shard-side:
+        O(codes + molecules) reach the host, never the pairs."""
+        inc_sh = self._inc_sh
+        codes_m, _, sizes = self._labels_sh.molecule_stats(inc_sh)
+        n_clusters = np.bincount(codes_m, minlength=inc_sh.n_codes)
+        _write_report_lines(out, inc_sh.n_codes,
+                            np.diff(inc_sh.code_offsets).tolist(),
+                            n_clusters.tolist(), sizes.tolist())
+        self.timer.stage(f"report: {inc_sh.n_codes} codes")
 
     # -- checkpoint / resume ---------------------------------------------------
 
@@ -554,6 +1031,7 @@ class Engine:
         h = convert.keys_from_numpy(z["hashes"], dev)
         c = torch.from_numpy(z["counts"].astype(np.int32)).to(dev)
         cap = 1 << self.cfg.table_bits
+        self._dt = None   # replace means replace: no sharded state survives
         self.table = st.merge_counts(st.make_sorted_table(cap, cap, dev), h, c)
         self.n_reads_counted = int(meta["n_reads"])
         self.retained_hashes = (convert.keys_from_numpy(z["retained"], dev)

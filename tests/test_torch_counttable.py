@@ -296,14 +296,49 @@ def test_cli_write_fqb_round_trip(lane):
                 io.StringIO())
 
 
-def test_not_ported_flags_are_exactly_later_items():
-    assert cli._NOT_PORTED == {
-        "--hosts", "--hostId", "--coordinator", "--shards", "--laneCapacity",
-        "--labelBlocks", "--readFQBShard"}
-    for flag in ("--countMode", "--syncmer", "--errorFix", "--readHash",
-                 "--minShare", "--clusterMode", "--maxFriends", "--metrics",
-                 "--devMem", "--profile", "--cribBuild", "--cribReport"):
-        assert flag in cli.__doc__
+def _jax_flags():
+    """The flags of the JAX CLI's usage lines (indented lines that start
+    with a dash)."""
+    from hash10x_tpu.cli import main as jax_cli
+    lines = [ln for ln in jax_cli.__doc__.splitlines()
+             if ln[:1] == " " and ln.lstrip().startswith("-")]
+    return sorted({f for ln in lines for f in re.findall(
+        r"(?<![\w-])(--?[A-Za-z][A-Za-z0-9]*)", ln)})
+
+
+def test_every_jax_flag_is_accepted(tmp_path):
+    """Every flag of the JAX CLI's usage text is in the port's and runs
+    there: it may fail on its dummy input, never as an unknown argument."""
+    flags = _jax_flags()
+    assert len(flags) > 40 and "--readFQBShard" in flags
+    dummy = {"--countMode": ["barcodes"], "--clusterMode": ["friend"],
+             "--coordinator": ["127.0.0.1:1"], "--hosts": ["2"],
+             "--simulate": ["genome_len=5000,n_barcodes=2,molecule_len=1000,"
+                            "reads_per_molecule=4,read_len=60"],
+             "--readFastqPair": [str(tmp_path / "r1"), str(tmp_path / "r2")]}
+    paths = {"--readFastq", "--readFQB", "--readFQBShard", "--writeFQB",
+             "--writeHash", "--readHash", "--writeCounts", "--writeClusters",
+             "--metrics", "--profile", "--cribBuild"}
+    no_arg = {"--minimizer", "--modimizer", "--allKmers", "--devMem",
+              "--hashInfo", "--hashDist", "--cluster", "--codeClusters",
+              "--clusterSplit", "--clusterReport", "--cribReport"}
+    for flag in flags:
+        assert flag in cli.__doc__, flag
+        if flag in ("--help", "-h"):
+            out = io.StringIO()
+            assert cli.main([flag], out=out) == 0 and "--shards" in \
+                out.getvalue()
+            continue
+        args = dummy.get(flag) or ([str(tmp_path / flag.strip("-"))]
+                                   if flag in paths else
+                                   [] if flag in no_arg else ["2"])
+        try:
+            cli.run(["--device", "cpu", flag, *args], io.StringIO(),
+                    io.StringIO())
+        except SystemExit as e:
+            assert "unknown argument" not in str(e), flag
+        except (OSError, ValueError, RuntimeError):
+            pass   # the command ran and refused its dummy input
 
 
 # -- config #1 against the C stand-in ------------------------------------------------

@@ -145,13 +145,6 @@ def test_default_device_is_cuda_and_never_falls_back():
         run(["--simulate", SIM, "--hashInfo"], io.StringIO(), io.StringIO())
 
 
-@pytest.mark.parametrize("flag", ["--shards", "--hosts", "--labelBlocks",
-                                  "--readFQBShard"])
-def test_unported_flags_exit(flag):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        run(["--device", "cpu", flag], io.StringIO(), io.StringIO())
-
-
 def test_help_and_unknown_flag():
     out = io.StringIO()
     assert main(["--help"], out=out) == 0
