@@ -74,6 +74,11 @@ Phases (any failure exits non-zero):
                 4's and the other process prints nothing; launches and walls
                 per process
  18. cpu4     - CUDA and CPU byte-identical with --shards 4 on phase 6's lane
+ 19. reset    - config #1 through the library API on CUDA: a fresh Engine's
+                count, then Engine.reset() and a recount of the same lane
+                (the lane stays on the device): both tables byte-equal to
+                each other and to phase 8's native/c_ref dump; kernel
+                launches > 0 and plain calls 0 in the recount
 The last two lines of stdout before the result are a JSON line describing
 the kernels and the card's name and power limit; the last line is the JSON
 result {"ok": true, "device": {...}}.
@@ -129,72 +134,12 @@ def _batch(rng, B, L, k, w, bad=0.0, ragged=False, homo=2):
     return codes, lengths
 
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
-# 32-bit integer operations per second: 132 SMs x 64 INT32 lanes x 1.98 GHz
-# (the float32 row's 67 TFLOP/s counts 128 lanes and two per FMA)
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-OPS_PER_HASH = 20  # a canonical hash: 2 64-bit multiplies at 4, 2 64-bit
-#                    shifts at 2, the 64-bit compare and select at 4, the
-#                    forward and reverse-complement roll at 4
-
-
-def sketch_bound(B, L, R, k, mode="minimizer", s=0):
-    """(bytes, operations, bound_ms, bound_by) of one sketch call: each
-    base and length read once, each output slot (int64 hash, flags byte)
-    and overflow count written once; a lower count of the integer work
-    (every k-mer position hashed, syncmer's s-mers hashed and k - s
-    compares per position, minimizer's 2 compares per position)."""
-    P = L - k + 1
-    nbytes = B * L + 4 * B + B * R * 9 + 4 * B
-    ops = B * P * OPS_PER_HASH
-    if mode == "syncmer":
-        ops += B * (L - s + 1) * OPS_PER_HASH + B * P * (k - s) * 2
-    elif mode == "minimizer":
-        ops += B * P * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return (nbytes, ops, max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def launcher(torch, MK, spec, c, ln, kw):
-    """One sketch kernel launch on (c, ln) into preallocated outputs
-    (``MK._launch``: without the wrapper's allocations and flag
-    conversions)."""
-    B, L = c.shape
-    R = kw.get("compact_to", 0) or L - spec.k + 1
-    out = (torch.empty((B, R), dtype=torch.int64, device=c.device),
-           torch.empty((B, R), dtype=torch.uint8, device=c.device),
-           torch.empty(B, dtype=torch.int32, device=c.device))
-    args = (kw.get("mode", "minimizer"), kw.get("compact_to", 0),
-            kw.get("m", 0), kw.get("syncmer_s", 0))
-    return lambda: MK._launch(spec, c, ln, out, *args)
-
-
 def kernel_device_ms(torch, launch, n=20):
-    """Device time per launch of ``launch()``: CUDA events around n
-    launches queued behind a spin kernel, so that they run back to back on
-    the card.  The spin must still be running when the last launch is
-    queued, else the events would hold host gaps; it is lengthened until
-    it is."""
-    launch()
-    torch.cuda.synchronize()
-    spin = 2_000_000  # cycles, ~1 ms
-    for _ in range(8):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(spin)
-        e0.record()
-        for _ in range(n):
-            launch()
-        e1.record()
-        queued_in_time = not e0.query()
-        torch.cuda.synchronize()
-        if queued_in_time:
-            return e0.elapsed_time(e1) / n
-        spin *= 4
-    fail("the card ran the timed sketch launches faster than the host "
-         "queued them")
+    """Device ms per launch of ``launch()`` (CUDA events around launches
+    queued behind a spin kernel): ``utils.timing.kernel_device_ms``, which
+    the bench uses too."""
+    from hash10x_tpu_torch.utils.timing import kernel_device_ms as device_ms
+    return device_ms(launch, n)
 
 
 def kernel_entry(name, launches, err, ms, plain_ms, device_ms, shape):
@@ -202,6 +147,7 @@ def kernel_entry(name, launches, err, ms, plain_ms, device_ms, shape):
     arguments for the timed call.  ``ms`` is the wrapper's time per call
     (CUDA events over back-to-back calls, as in earlier slices),
     ``device_ms`` the kernel's alone (kernel_device_ms)."""
+    from hash10x_tpu_torch.kernels.minimizer import sketch_bound
     _, _, bound_ms, bound_by = sketch_bound(*shape)
     return {"name": name, "route": "cuda",
             "source": "hash10x_tpu_torch/csrc/minimizer.cu",
@@ -260,6 +206,7 @@ def phase_parity(torch, MK, HashSpec, compact_rows):
 
 
 def print_times(what, times, shape):
+    from hash10x_tpu_torch.kernels.minimizer import sketch_bound
     ms, plain_ms, dev_ms = times
     nbytes, ops, bound_ms, bound_by = sketch_bound(*shape)
     print(f"{what}: device {dev_ms:.4f} ms/launch (CUDA events around "
@@ -280,7 +227,7 @@ def time_sketch(torch, MK, rng, spec, kw, n=50):
     ln = torch.from_numpy(lengths).to(dev)
     ms, plain_ms = time_kernel_plain(torch, MK, spec, c, ln, kw, n)
     return ms, plain_ms, kernel_device_ms(
-        torch, launcher(torch, MK, spec, c, ln, kw))
+        torch, MK.launcher(spec, c, ln, **kw))
 
 
 def time_kernel_plain(torch, MK, spec, c, ln, kw, n, warm=3):
@@ -629,6 +576,56 @@ def phase_counts(torch, MK, run, tmp):
           f"CPU (build of its table included, run without --barcodes)")
 
 
+def phase_reset(torch, MK, tmp):
+    """Phase 19: config #1 through the library API: a fresh engine's table,
+    then reset() and a recount of the same lane with the lane kept on the
+    device; both byte-equal to each other and to phase 8's c_ref dump."""
+    from hash10x_tpu_torch.engine import Engine, EngineConfig
+    from hash10x_tpu_torch.hashspec import HashSpec
+    from hash10x_tpu_torch.io.fqb import load_fqb
+    from hash10x_tpu_torch.table import sorted_table as st
+    fqb = load_fqb(os.path.join(tmp, "count.fqb"))
+    eng = Engine(EngineConfig(spec=HashSpec(k=K, w=W, seed=SEED),
+                              count_mode="occurrences", table_bits=20),
+                 "cuda", log=None)
+
+    def table():
+        h, c = st.compact(eng._flushed())
+        return h.cpu().numpy().tobytes() + c.cpu().numpy().tobytes()
+    eng.count(fqb)
+    fresh = table()
+    lane = eng._lane_cache[2]
+    eng.reset()
+    if eng.table is not None or eng.n_reads_counted or any(
+            eng.stats.values()):
+        fail("reset() left analysis state behind")
+    MK.LAUNCHES = 0
+    MK.PLAIN_CALLS = 0
+    t0 = time.monotonic()
+    eng.count(fqb)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches, plain = MK.LAUNCHES, MK.PLAIN_CALLS
+    if launches <= 0 or plain != 0:
+        fail(f"reset() + recount: kernel launches {launches}, plain calls "
+             f"{plain}")
+    if eng._lane_cache[2] is not lane:
+        fail("reset() dropped the device-resident lane")
+    again = table()
+    with open(os.path.join(tmp, "count_c.bin"), "rb") as f:
+        m = int(np.fromfile(f, np.uint64, 1)[0])
+        c_h = np.fromfile(f, np.uint64, m).astype(np.int64)
+        c_c = np.fromfile(f, np.uint32, m).astype(np.int32)
+    if again != fresh:
+        fail("reset() + recount table != the fresh engine's table")
+    if again != c_h.tobytes() + c_c.tobytes():
+        fail("reset() + recount table != c_ref --dump")
+    print(f"reset: config #1 recount after reset() byte-equal to the fresh "
+          f"engine's table and to c_ref ({m} (hash, count) pairs); kernel "
+          f"launches {launches}, plain calls 0; recount wall {wall:.3f} s "
+          f"(lane on the device); stats {eng.stats}")
+
+
 def phase_checkpoint(torch, MK, run, lane, tmp):
     """errorFix with rescue through the report and --writeHash; a fresh CLI
     resumes with --readHash and must print the same report."""
@@ -742,7 +739,7 @@ def phase_crib_parity(torch, MK, HashSpec, crib_rows):
     ms, plain_ms = time_kernel_plain(torch, MK, spec, c, ln,
                                      dict(mode="kmer"), n=3, warm=1)
     dev_ms = kernel_device_ms(
-        torch, launcher(torch, MK, spec, c, ln, dict(mode="kmer")), n=5)
+        torch, MK.launcher(spec, c, ln, mode="kmer"), n=5)
     print_times(f"sketch kmer dense B={crib_rows} L={L} k={K} (one crib "
                 f"row group; plain over 2x3 calls, device over 5)",
                 (ms, plain_ms, dev_ms), (crib_rows, L, L - K + 1, K, "kmer"))
@@ -810,6 +807,7 @@ def phase_tile_fuzz(torch, MK, HashSpec):
     the warps per block, w = P, the widest tile window (4096) and one past
     it (the scratch-ring kernel), and rows at unaligned addresses.  Returns
     max_abs_err."""
+    from hash10x_tpu_torch.kernels.minimizer import sketch_bound
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 4)
     wmax = MK.build().h10x_max_tile_w()
@@ -862,13 +860,17 @@ def phase_tile_fuzz(torch, MK, HashSpec):
                      f"{kw} L={L} C={C}")
             if w > wmax and C == 0:
                 # the thread-per-read sketch_kernel_wide: no lane runs it
-                dms = kernel_device_ms(
-                    torch, launcher(torch, MK, spec, c, ln, {}), n=5)
+                dms = kernel_device_ms(torch, MK.launcher(spec, c, ln),
+                                       n=5)
+                ms, plain_ms = time_kernel_plain(torch, MK, spec, c, ln, {},
+                                                 n=3, warm=1)
                 nbytes, ops, bound, by = sketch_bound(B, L, L - k + 1, k)
                 print(f"sketch_kernel_wide w={w} B={B} L={L} dense: "
-                      f"{dms:.4f} device ms per launch; {nbytes} bytes, "
-                      f"{ops} operations, bound {bound:.5f} ms ({by}); "
-                      f"bound share {bound / dms:.4f}")
+                      f"{dms:.4f} device ms per launch; wrapper {ms:.4f} "
+                      f"ms/call, plain {plain_ms:.4f} ms/call (CUDA events "
+                      f"over 2x3 calls each); {nbytes} bytes, {ops} "
+                      f"operations, bound {bound:.5f} ms ({by}); bound "
+                      f"share {bound / dms:.4f}")
         del buf, c, ln
     return max_err
 
@@ -1410,6 +1412,8 @@ def main() -> int:
         phase_hosts(lane, tmp, reads, bc_ids, text)
         phase_cuda_vs_cpu_shards(run, tmp)
         elapsed("phases 15-18")
+        phase_reset(torch, MK, tmp)
+        elapsed("phase 19")
 
     kernels = [kernel_entry(
         "seqhash_sketch", launches, max(max_err, fuzz_err), *main_times,

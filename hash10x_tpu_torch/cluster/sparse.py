@@ -37,8 +37,8 @@ from ..table.incidence import Incidence
 from ..table.sorted_table import segment_sum_sorted
 from ..utils.dense import device_dense_ranks, distinct_below
 
-__all__ = ["cooccurrence_counts", "friend_keys", "propagate_labels",
-           "canonical_ranks", "cluster_codes_sparse"]
+__all__ = ["cooccurrence_counts", "friend_pairs", "friend_keys",
+           "propagate_labels", "canonical_ranks", "cluster_codes_sparse"]
 
 # co-occurrence keys held before a reduction (bounds enumeration memory)
 _CHUNK = 1 << 25
@@ -114,10 +114,17 @@ def _cooccur(sj: _ShiftJoin, n_codes: int, chunk: int):
     return keys[0], weights[0]
 
 
+def friend_pairs(pair_keys: torch.Tensor, shares: torch.Tensor,
+                 min_friend_share: int) -> torch.Tensor:
+    """The co-occurrence keys (c1 * n_codes + c2) whose share is at least
+    ``min_friend_share``, in their order."""
+    return pair_keys[shares >= min_friend_share]
+
+
 def friend_keys(keys: torch.Tensor, shares: torch.Tensor, n_codes: int,
                 min_friend_share: int) -> torch.Tensor:
     """Sorted friend pair keys, both orders, from the c1 < c2 counts."""
-    f1 = keys[shares >= min_friend_share]
+    f1 = friend_pairs(keys, shares, min_friend_share)
     f2 = (f1 % n_codes) * n_codes + f1 // n_codes
     return torch.sort(torch.cat([f1, f2])).values
 

@@ -5,6 +5,8 @@ Commands are methods run in order against one shared state, as in the
 reference's command language:
 
     Engine.count(fqb)        ~ --readFQB       (count pass)
+    Engine.reset()           clears the analysis state, keeps the lane on
+                             the device (a recount skips the copy)
     Engine.histogram()/info()/write_histogram()  ~ --hashDist / --hashInfo
     Engine.error_fix(max)    ~ --errorFix      (error-band prune, optional
                                                 read-occurrence rescue)
@@ -32,14 +34,19 @@ views (``table``, ``retained_hashes``, ``inc``, ``cluster_labels``,
 ``split_inc``) are gathered only when an output command asks for them.
 Every gather is a collective, so in a multi-process run every process
 enters it (``host_materialize``).
+
+``stats`` holds two host counters that read no device value: ``dispatches``
+(batch steps sent to the device in count and incidence) and ``flushes``
+(sort-merges of an append buffer into a table during them).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import sys
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -110,6 +117,19 @@ class EngineConfig:
                                      # about this many pairs
 
 
+def _counting_flushes(method):
+    """Add the table sort-merges made inside ``method`` to
+    ``stats["flushes"]``."""
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        f0 = st.FLUSHES
+        try:
+            return method(self, *args, **kwargs)
+        finally:
+            self.stats["flushes"] += st.FLUSHES - f0
+    return wrapped
+
+
 class Engine:
     # append-buffer capacity in batches of pre-reduced keys: each flush is
     # one sort of (table + buffer), so flushes stay rare
@@ -122,24 +142,28 @@ class Engine:
             raise ValueError(f"unknown count mode {cfg.count_mode!r}")
         self.cfg = cfg
         self.device = torch.device(device)
+        self._group: Optional[ShardGroup] = None
+        self._global_n_barcodes = 0   # multi-process --readFQBShard lanes
+        self._read_len = 0
+        self._lane_cache = None  # (fqb, batch size, device lane, spans)
+        self.timer = StageTimer(log, device=self.device)
+        self.reset()
+
+    def reset(self) -> None:
+        """Clear the analysis state (count table, retained band, incidence,
+        labels, split, read count, ``stats``), plain and sharded.  The lane
+        cached on the device and the shard group stay: a recount of the
+        same lane copies nothing to the device, and a multi-process run
+        does not join again."""
         self.table: Optional[st.SortedTable] = None
         # sharded state (n_shards > 1): count table, retained band (rows,
         # counts, (n,) global offsets, total), incidence, labels, split
         self._dt: Optional[DS.ShardedSortedTable] = None
-        self._ret_sh = None
-        self._inc_sh: Optional[SI.ShardedIncidence] = None
-        self._labels_sh: Optional[SI.ShardedLabels] = None
-        self._split_inc_sh: Optional[SI.ShardedIncidence] = None
-        self._group: Optional[ShardGroup] = None
-        self._global_n_barcodes = 0   # multi-process --readFQBShard lanes
-        self.retained_hashes = None
+        self.retained_hashes = None   # and the sharded band
         self.retained_counts = None
-        self._inc: Optional[Incidence] = None
-        self._set_labels(None)
+        self.inc = None   # and the sharded incidence, labels, split
         self.n_reads_counted = 0
-        self._read_len = 0
-        self._lane_cache = None  # (fqb, batch size, device lane, spans)
-        self.timer = StageTimer(log, device=self.device)
+        self.stats = {"dispatches": 0, "flushes": 0}
 
     # -- whole views of the (possibly sharded) state -------------------------------
 
@@ -209,6 +233,16 @@ class Engine:
 
     def _has_labels(self) -> bool:
         return self._labels is not None or self._labels_sh is not None
+
+    @property
+    def clusters(self) -> Optional[List[torch.Tensor]]:
+        """Per-code views of the flat labels: entry c holds the labels of
+        barcode c's k-mers (None before clustering)."""
+        labels = self.cluster_labels
+        if labels is None:
+            return None
+        offs = self.inc.code_offsets.tolist()
+        return [labels[offs[c]:offs[c + 1]] for c in range(len(offs) - 1)]
 
     @property
     def split_inc(self) -> Optional[Incidence]:
@@ -355,6 +389,7 @@ class Engine:
 
     # -- count pass --------------------------------------------------------------
 
+    @_counting_flushes
     def count(self, fqb: Fqb, local_shard: bool = False) -> None:
         """Count pass: every batch is sketched, pre-reduced and buffered into
         the count table.  Barcodes mode keys on (hash, distinct-barcode
@@ -384,6 +419,7 @@ class Engine:
         overflow = torch.zeros((), dtype=torch.int64, device=self.device)
         group, gtab = None, None
         for flat_h, flat_bc, m, sketch_over, gid in self._batches(fqb):
+            self.stats["dispatches"] += 1
             if group is not None and gid != group:
                 self._finish_group(gtab)
                 group, gtab = None, None
@@ -537,6 +573,7 @@ class Engine:
 
     # -- incidence, clusters, split, report --------------------------------------
 
+    @_counting_flushes
     def incidence(self, fqb: Fqb, local_shard: bool = False) -> None:
         """Second pass: the deduplicated k-mer x barcode incidence.  Lanes
         whose (barcode, hash) pair fits one int63 key buffer combined keys
@@ -563,6 +600,7 @@ class Engine:
         overflow = torch.zeros((), dtype=torch.int64, device=self.device)
         # group tags do not matter here: the pair table dedups globally
         for flat_h, flat_bc, m, sketch_over, _ in self._batches(fqb):
+            self.stats["dispatches"] += 1
             if hb:
                 ok = (flat_h != INT64_MAX) & (flat_bc >= 0)
                 raw = torch.where(ok, (flat_bc << hb) | flat_h, INT64_MAX)
@@ -862,6 +900,7 @@ class Engine:
         side = side_step = None
         cur = None
         for codes, ln, bc, gid in self._sharded_batches(fqb, local_shard):
+            self.stats["dispatches"] += 1
             if gid is not None and cfg.count_mode == "barcodes":
                 if side_step is None:
                     side_step = self._count_step(g, "occurrences")
@@ -943,6 +982,7 @@ class Engine:
         dt = self._sharded_table_for(g, step, routing="low")
         # group tags do not matter here: the pair table dedups globally
         for codes, ln, bc, _ in self._sharded_batches(fqb, local_shard):
+            self.stats["dispatches"] += 1
             dt = step(dt, codes, ln, bc)
         dt = step.finish(dt)
         drops = DS.host_sum(g, dt.drops)

@@ -15,6 +15,9 @@ it never gives way to the plain version there.  ``sketch_plain`` is the same
 function in plain torch (``core/seqhash.py`` plus an in-order compaction)
 and serves CPU tensors.  ``LAUNCHES`` counts kernel launches and
 ``PLAIN_CALLS`` counts plain-version calls made by ``sketch``.
+``sketch_minimizer``, ``sketch_minimizer_compact`` and ``supported`` keep
+the JAX module's entry points; ``sketch_bound`` is the least time an H100
+could take for one call, the yardstick of ``chip_smoke.py`` and the bench.
 
 The kernel is built with ``nvcc`` for ``sm_90a`` into ``_build/`` (ignored by
 git) at first use, keyed by a hash of the source, and loaded with ctypes.
@@ -40,13 +43,23 @@ from .. import INT64_MAX
 from ..core import seqhash
 from ..hashspec import HashSpec
 
-__all__ = ["sketch", "sketch_plain", "build", "LAUNCHES", "PLAIN_CALLS",
-           "KERNEL_MODES"]
+__all__ = ["sketch", "sketch_plain", "sketch_minimizer",
+           "sketch_minimizer_compact", "supported", "sketch_bound", "launcher",
+           "build", "LAUNCHES", "PLAIN_CALLS", "KERNEL_MODES",
+           "HBM_BYTES_PER_S", "INT32_OPS_PER_S", "OPS_PER_HASH"]
 
 LAUNCHES = 0
 PLAIN_CALLS = 0
 
 KERNEL_MODES = {"kmer": 0, "minimizer": 1, "modimizer": 2, "syncmer": 3}
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+# 32-bit integer operations per second: 132 SMs x 64 INT32 lanes x 1.98 GHz
+# (the float32 row's 67 TFLOP/s counts 128 lanes and two per FMA)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+OPS_PER_HASH = 20  # a canonical hash: 2 64-bit multiplies at 4, 2 64-bit
+#                    shifts at 2, the 64-bit compare and select at 4, the
+#                    forward and reverse-complement roll at 4
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "minimizer.cu"
@@ -127,6 +140,74 @@ def sketch_plain(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor,
     hashes = out_h[:, :C].contiguous()
     overflow = torch.clamp(emit.sum(dim=1) - C, min=0).to(torch.int32)
     return hashes, out_f[:, :C].contiguous(), hashes != INT64_MAX, overflow
+
+
+def supported(spec: HashSpec, codes_shape, mode: str = "minimizer",
+              m: int = 0, syncmer_s: int = 0) -> bool:
+    """Whether the kernel takes a (B, L) batch in this mode (``sketch``
+    raises ``ValueError`` on CUDA tensors otherwise).  Wider than the Pallas
+    kernel's domain: any B, reads shorter than k + w - 1, any w, a
+    modimizer modulus in [1, 2^63)."""
+    B, L = codes_shape
+    if mode not in KERNEL_MODES or B < 0 or L - spec.k + 1 < 1:
+        return False
+    if mode == "modimizer":
+        return 1 <= (m or spec.w) < (1 << 63)
+    if mode == "syncmer":
+        return 0 < syncmer_s < spec.k
+    return True
+
+
+def sketch_minimizer(spec: HashSpec, codes: torch.Tensor,
+                     lengths: torch.Tensor):
+    """Minimizer sketch as dense (B, P) rows: ``(hashes, is_forward,
+    emit)``, ``INT64_MAX`` at positions without a valid k-mer."""
+    return sketch(spec, codes, lengths)[:3]
+
+
+def sketch_minimizer_compact(spec: HashSpec, codes: torch.Tensor,
+                             lengths: torch.Tensor, compact_to: int):
+    """Minimizer sketch with each read's emissions moved to the front of a
+    (B, ``compact_to``) row in position order: ``(hashes, is_forward, emit,
+    overflow)``, overflow counting the emissions past ``compact_to``."""
+    return sketch(spec, codes, lengths, compact_to=compact_to)
+
+
+def sketch_bound(B: int, L: int, R: int, k: int, mode: str = "minimizer",
+                 s: int = 0):
+    """(bytes, operations, bound_ms, bound_by) of one sketch call of B reads
+    of L bases into R output slots per read: each base and length read
+    once, each output slot (int64 hash, flags byte) and overflow count
+    written once; a lower count of the integer work (every k-mer position
+    hashed, syncmer's s-mers hashed and k - s compares per position,
+    minimizer's 2 compares per position)."""
+    P = L - k + 1
+    nbytes = B * L + 4 * B + B * R * 9 + 4 * B
+    ops = B * P * OPS_PER_HASH
+    if mode == "syncmer":
+        ops += B * (L - s + 1) * OPS_PER_HASH + B * P * (k - s) * 2
+    elif mode == "minimizer":
+        ops += B * P * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (nbytes, ops, max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def launcher(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor,
+             mode: str = "minimizer", compact_to: int = 0, m: int = 0,
+             syncmer_s: int = 0):
+    """A function that makes one kernel launch on the CUDA batch (codes,
+    lengths) into outputs allocated once here: the kernel alone, without
+    the wrapper's allocations and flag conversions, for timing it."""
+    B, L = codes.shape
+    R = compact_to or L - spec.k + 1
+    dev = codes.device
+    out = (torch.empty((B, R), dtype=torch.int64, device=dev),
+           torch.empty((B, R), dtype=torch.uint8, device=dev),
+           torch.empty(B, dtype=torch.int32, device=dev))
+    return lambda: _launch(spec, codes, lengths, out, mode, compact_to, m,
+                           syncmer_s)
 
 
 def sketch(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor,

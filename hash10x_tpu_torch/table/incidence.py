@@ -10,6 +10,9 @@ Pair keys are ``code * n_kmers + kmer`` in int64, so the key space must stay
 below 2^63 - 1.  Lanes whose (barcode, hash) pair fits one int63 key skip the
 per-batch rank join and map ranks once at the end
 (:func:`combined_key_bits`, :func:`finalize_combined_pairs`).
+:func:`build_incidence` is the one-shot entry from flat (k-mer id, barcode)
+emissions; the engine streams batches through a sorted pair table instead.
+Both end in :func:`incidence_from_sorted_pairs`.
 """
 
 from __future__ import annotations
@@ -20,9 +23,11 @@ from typing import Optional
 import torch
 
 from .. import INT64_MAX
+from .sorted_table import lookup_ids
 
-__all__ = ["Incidence", "pair_keys", "combined_key_bits",
-           "finalize_combined_pairs", "incidence_from_sorted_pairs"]
+__all__ = ["Incidence", "build_incidence", "retained_lookup", "pair_keys",
+           "combined_key_bits", "finalize_combined_pairs",
+           "incidence_from_sorted_pairs"]
 
 
 @dataclass
@@ -52,6 +57,23 @@ class Incidence:
         return torch.repeat_interleave(
             torch.arange(self.n_codes, device=self.device),
             torch.diff(self.code_offsets))
+
+    def kmers_of(self, code: int) -> torch.Tensor:
+        """The k-mer ids of barcode ``code``, ascending (a view)."""
+        o = self.code_offsets[code:code + 2].tolist()
+        return self.code_kmers[o[0]:o[1]]
+
+    def codes_of(self, kmer: int) -> torch.Tensor:
+        """The barcodes holding k-mer ``kmer``, ascending (a view)."""
+        o = self.kmer_offsets[kmer:kmer + 2].tolist()
+        return self.kmer_codes[o[0]:o[1]]
+
+
+def retained_lookup(retained: torch.Tensor, hashes: torch.Tensor):
+    """Canonical k-mer ids of ``hashes``: their ranks in the ascending
+    retained set.  Returns (ids int64, -1 where absent; found mask);
+    ``INT64_MAX`` pads are never found."""
+    return lookup_ids(retained, hashes)
 
 
 def pair_keys(retained: torch.Tensor, flat_h: torch.Tensor,
@@ -129,3 +151,26 @@ def incidence_from_sorted_pairs(pairs: torch.Tensor, n_kmers: int,
         pairs, n_kmers, n_codes)
     return Incidence(n_kmers, n_codes, code_offsets, pk, kmer_offsets,
                      kmer_codes, inv2fwd)
+
+
+def build_incidence(kmer_ids, codes, n_kmers: int, n_codes: int,
+                    device) -> Incidence:
+    """Deduplicate flat (k-mer id, barcode id) emissions into the
+    double-CSR incidence on ``device``.
+
+    ``kmer_ids`` and ``codes`` are (P,) integer arrays or tensors; entries
+    where either is -1 are dropped.  Pair keys ``code * n_kmers + kmer`` are
+    sorted and deduplicated on the device."""
+    dev = torch.device(device)
+    k = torch.as_tensor(kmer_ids).to(dev, torch.int64)
+    c = torch.as_tensor(codes).to(dev, torch.int64)
+    keep = (k >= 0) & (c >= 0)
+    k, c = k[keep], c[keep]
+    if n_codes * n_kmers >= INT64_MAX:
+        raise ValueError(f"pair key space {n_codes} codes x {n_kmers} kmers "
+                         "does not fit int64")
+    if k.shape[0] and (int(k.max()) >= n_kmers or int(c.max()) >= n_codes):
+        raise ValueError(f"k-mer ids must be < {n_kmers} and barcode ids "
+                         f"< {n_codes}")
+    pairs = torch.unique(c * n_kmers + k, sorted=True)
+    return incidence_from_sorted_pairs(pairs, n_kmers, n_codes)

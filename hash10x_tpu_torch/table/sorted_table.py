@@ -14,6 +14,8 @@
   (one device sync) and kept exact in ``n_filled``.
 * ``merge_counts`` merges outside (key, count) pairs the same way;
   ``prune`` and ``prune_rescue`` drop the error band (``Engine.error_fix``).
+* ``FLUSHES`` counts the sort-merges (``flush_grow`` calls with a non-empty
+  buffer, ``merge_counts`` included); ``Engine.stats`` reads it.
 
 Per-batch pre-reductions have a fixed slot count; distinct keys beyond it
 are counted exactly in an ``overflow`` tensor that callers check and raise
@@ -32,7 +34,9 @@ from .. import INT64_MAX
 __all__ = ["SortedTable", "make_sorted_table", "append", "append_pairs",
            "flush_grow", "grow_buf", "merge_counts", "segment_sum_sorted",
            "dedup_weighted", "dedup_pairs_weighted", "count_histogram",
-           "compact", "prune", "prune_rescue", "lookup_ids"]
+           "compact", "prune", "prune_rescue", "lookup_ids", "FLUSHES"]
+
+FLUSHES = 0
 
 
 @dataclasses.dataclass
@@ -74,8 +78,10 @@ def segment_sum_sorted(s: torch.Tensor, w: torch.Tensor
 def flush_grow(t: SortedTable, load: float = 0.6) -> SortedTable:
     """Merge the buffer into the table: sort, sum equal keys, and grow the
     capacity (doubling) until the fill is at most ``load`` of it."""
+    global FLUSHES
     if t.buf_n == 0:
         return t
+    FLUSHES += 1
     all_h = torch.cat([t.hashes[:t.n_filled], t.buf[:t.buf_n]])
     all_w = torch.cat([t.counts[:t.n_filled], t.bufw[:t.buf_n]])
     all_h, order = torch.sort(all_h, stable=True)

@@ -17,7 +17,7 @@ import time
 
 import torch
 
-__all__ = ["StageTimer"]
+__all__ = ["StageTimer", "kernel_device_ms"]
 
 
 class StageTimer:
@@ -84,3 +84,29 @@ class StageTimer:
         if self.jsonl is not None:
             self.jsonl.close()
             self.jsonl = None
+
+
+def kernel_device_ms(launch, n: int = 20) -> float:
+    """Device time per launch of ``launch()`` on the current CUDA device:
+    CUDA events around n launches queued behind a spin kernel, so that they
+    run back to back on the card.  The spin must still be running when the
+    last launch is queued, else the events would hold host gaps; it is
+    lengthened until it is."""
+    launch()
+    torch.cuda.synchronize()
+    spin = 2_000_000  # cycles, ~1 ms
+    for _ in range(8):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        e0.record()
+        for _ in range(n):
+            launch()
+        e1.record()
+        queued_in_time = not e0.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return e0.elapsed_time(e1) / n
+        spin *= 4
+    raise RuntimeError("the card ran the timed launches faster than the "
+                       "host queued them")

@@ -98,7 +98,7 @@ def test_hosts_without_coordinator_raises():
             io.StringIO(), io.StringIO())
 
 
-# -- two processes over gloo on the CPU ---------------------------------------------
+# -- two processes over gloo on the CPU ---------------------------------------
 
 MH_PARAMS = ["--device", "cpu", "-k", "13", "-w", "5", "-r", "17",
              "--batchReads", "128", "--minCount", "2", "--maxCount", "60",
@@ -263,6 +263,70 @@ def test_overlapping_shard_files_raise(mh_lane):
                     + MH_TAIL)
     for rc, _, err in res:
         assert rc != 0 and "share barcodes" in err
+
+
+# -- sharded cluster modes, crib and sketch modes (the lazy sharded views) ----
+
+@pytest.fixture(scope="module")
+def diploid(tmp_path_factory):
+    """A small diploid lane (tests/test_torch_crib.py's kind) and its two
+    haplotype FASTAs."""
+    from hash10x_tpu.io.sim import SimConfig, simulate
+    from hash10x_tpu_torch.core.encode import codes_to_ascii
+    from hash10x_tpu_torch.io.fqb import from_read_batch
+    from hash10x_tpu_torch.io.fastq import ReadBatch
+    tmp = tmp_path_factory.mktemp("dist_modes")
+    sim = simulate(SimConfig(genome_len=120_000, n_barcodes=48,
+                             molecules_per_barcode=2, molecule_len=4000,
+                             reads_per_molecule=30, read_len=120,
+                             het_rate=0.005, seed=4))
+    fas = []
+    for i, g in enumerate((sim.genome, sim.genome_hap1)):
+        fa = tmp / f"h{i}.fa"
+        fa.write_bytes(b">hap%d\n" % i + codes_to_ascii(g) + b"\n")
+        fas.append(str(fa))
+    r = sim.reads
+    lane = str(tmp / "lane.fqb")
+    save_fqb(lane, from_read_batch(ReadBatch(r.codes, r.lengths,
+                                             r.barcodes)))
+    return tmp, lane, fas
+
+
+CLUSTER_TAIL = ["--codeClusters", "--clusterSplit", "--clusterReport"]
+
+
+@pytest.mark.parametrize("shards,flags,tail", [
+    ("4", ["--clusterMode", "pair", "--minShare", "2"], CLUSTER_TAIL),
+    ("4", ["--maxFriends", "8"], CLUSTER_TAIL),
+    ("2", [], ["--codeClusters", "--cribBuild", "H1", "H2", "--cribReport"]),
+    ("2", ["--modimizer"], CLUSTER_TAIL)],
+    ids=["pair-shards4", "maxFriends8-shards4", "crib-shards2",
+         "modimizer-shards2"])
+def test_sharded_modes_match_jax_cli(diploid, shards, flags, tail):
+    """Pair mode, capped friends and the crib gather the sharded state
+    through the engine's lazy views; the modimizer runs through sharded
+    clustering.  stdout and --writeClusters equal the JAX CLI's at the same
+    --shards."""
+    tmp, lane, fas = diploid
+    tail = [{"H1": fas[0], "H2": fas[1]}.get(a, a) for a in tail]
+    args = ["-k", "17", "-w", "7", "-B", "14", "--batchReads", "1024",
+            "--friendShare", "8", "--shards", shards, *flags,
+            "--readFQB", lane, *tail]
+    texts = []
+    for tag, fn, pre in (("jax", jax_main, []),
+                         ("port", main, ["--device", "cpu"])):
+        out = io.StringIO()
+        dump = tmp / f"{tag}_{'_'.join(flags) or 'crib'}.clusters"
+        assert fn(pre + args + ["--writeClusters", str(dump)], out=out,
+                  err=io.StringIO()) == 0
+        texts.append((SLOTS.sub("table slots N ", out.getvalue()),
+                      dump.read_text()))
+    assert texts[1] == texts[0]
+    assert texts[1][1].count("\n") > 1000
+    if "--cribReport" in tail:
+        assert "crib totals" in texts[1][0]
+    else:
+        assert "code 47 nKmers" in texts[1][0]
 
 
 def test_help_names_the_sharded_flags():
