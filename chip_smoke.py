@@ -18,13 +18,19 @@ Phases (any failure exits non-zero):
                 dense, L = 32,768 with N blocks, rows shorter than k and one
                 of exactly k bases; seeded cases aimed at the kernel's tile
                 edges in every mode, on rows at unaligned addresses too
-                (phase_tile_fuzz; it also times the w = 4,097 case on
-                sketch_kernel_wide).  Each route (minimizer, modimizer,
-                syncmer at B=4096, L=150; a crib row group) is timed three
-                ways, each with CUDA events: the kernel's device time per
-                launch (kernel_device_ms), the wrapper's time per call (the
-                kernels line's "ms") and the plain version's, against its
-                bound (sketch_bound)
+                (phase_tile_fuzz); the wide route (minimizer, w > 4,096:
+                phase_wide) at w = 4,097, 5,000, 8,191 and w > P on rows of
+                3w aimed at its block edges, dense and compacted, at an
+                unaligned offset, and on a 64-row subset of 4,096 x 32,768
+                at w = 5,000.  Each route (minimizer, modimizer, syncmer at
+                B=4096, L=150; a crib row group; the wide route at the CLI
+                check's shape, at 33 x 12,288 with w = 4,097 and at the
+                full-card shape, there beside the tile kernel at w = 4,096)
+                is timed three ways, each with CUDA events: the kernel's
+                device time per launch (kernel_device_ms), the wrapper's
+                time per call (the kernels line's "ms") and the plain
+                version's (not at the full-card shape), against its bound
+                (sketch_bound)
   4. main     - the 800k-read / 50k-barcode lane of bench.py as an .fqb,
                 through hash10x_tpu_torch.cli.main on CUDA; every batch must go
                 through the kernel (launch counter > 0, plain calls == 0)
@@ -32,7 +38,9 @@ Phases (any failure exits non-zero):
                 table, byte-identical report, and byte-identical cluster dump
                 on a 50k-read sub-lane
   6. cpu      - the CLI on CUDA and on the CPU give byte-identical output on
-                a 20k-read lane with N bases, ragged and short reads
+                a 20k-read lane with N bases, ragged and short reads; the
+                same with -w 5000 (the wide route, C = 24): kernel launches
+                > 0 and plain calls 0 in the CUDA run
   7. modes    - the 800k lane through the CLI on CUDA with --syncmer 11 and
                 with --modimizer, each through the report; kernel launches > 0
                 and plain calls == 0 in each run
@@ -230,9 +238,10 @@ def time_sketch(torch, MK, rng, spec, kw, n=50):
         torch, MK.launcher(spec, c, ln, **kw))
 
 
-def time_kernel_plain(torch, MK, spec, c, ln, kw, n, warm=3):
+def time_kernel_plain(torch, MK, spec, c, ln, kw, n, warm=3, plain=True):
     """Kernel and plain ms per call on (c, ln): CUDA events over n calls
-    after ``warm`` warm-ups, in the order kernel, plain, plain, kernel."""
+    after ``warm`` warm-ups, in the order kernel, plain, plain, kernel;
+    with ``plain=False`` the kernel twice, and None for the plain."""
     def timed(fn):
         for _ in range(warm):
             fn(spec, c, ln, **kw)
@@ -246,10 +255,11 @@ def time_kernel_plain(torch, MK, spec, c, ln, kw, n, warm=3):
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / n
     ms, plain_ms = [], []
-    for fn, acc in ((MK.sketch, ms), (MK.sketch_plain, plain_ms),
-                    (MK.sketch_plain, plain_ms), (MK.sketch, ms)):
+    order = ((MK.sketch, ms), (MK.sketch_plain, plain_ms),
+             (MK.sketch_plain, plain_ms), (MK.sketch, ms))
+    for fn, acc in order if plain else order[::3]:
         acc.append(timed(fn))
-    return float(np.mean(ms)), float(np.mean(plain_ms))
+    return float(np.mean(ms)), float(np.mean(plain_ms)) if plain else None
 
 
 def phase_mode_parity(torch, MK, HashSpec, compact_rows_of):
@@ -441,10 +451,12 @@ def phase_c_ref(torch, st, run, eng, text, reads, bc_ids, tmp):
           f"{ta.count(chr(10))} lines byte-identical")
 
 
-def phase_cuda_vs_cpu(run, tmp):
+def phase_cuda_vs_cpu(run, tmp, w=W, MK=None):
     """The CLI on CUDA and on the CPU (plain versions) on a small lane with
     N bases, ragged and short reads and reads without a barcode: stdout and
-    both dump files must be byte-identical."""
+    both dump files must be byte-identical.  With ``MK`` the CUDA run's
+    kernel launches are counted (from 0) and returned; it fails unless
+    they are > 0 with no plain call."""
     from hash10x_tpu_torch.io.fastq import ReadBatch
     from hash10x_tpu_torch.io.fqb import from_read_batch, save_fqb
     rng = np.random.default_rng(SEED)
@@ -461,24 +473,37 @@ def phase_cuda_vs_cpu(run, tmp):
     lane = os.path.join(tmp, "ragged.fqb")
     save_fqb(lane, from_read_batch(ReadBatch(codes, lengths, keys)))
     outs = []
+    launches = plain = 0
     for dev in ("cuda", "cpu"):
         out = io.StringIO()
         files = [os.path.join(tmp, f"ragged_{dev}.{x}")
                  for x in ("counts", "clusters")]
-        run(["--device", dev, "-k", str(K), "-w", str(W), "-r", str(SEED),
+        if MK is not None and dev == "cuda":
+            MK.LAUNCHES = MK.PLAIN_CALLS = 0
+        run(["--device", dev, "-k", str(K), "-w", str(w), "-r", str(SEED),
              "--batchReads", "1024", "--friendShare", "4", "--readFQB", lane,
              "--hashInfo", "--hashDist", "--codeClusters", "--clusterSplit",
              "--clusterReport", "--writeCounts", files[0],
              "--writeClusters", files[1]], out, io.StringIO())
+        if MK is not None and dev == "cuda":
+            launches, plain = MK.LAUNCHES, MK.PLAIN_CALLS
         texts = [out.getvalue()]
         for f in files:
             with open(f) as fh:
                 texts.append(fh.read())
         outs.append(texts)
     if outs[0] != outs[1]:
-        fail("CUDA and CPU runs differ on the ragged N lane")
-    print(f"cuda vs cpu: {n}-read ragged lane with N bases, stdout "
+        fail(f"CUDA and CPU runs differ on the ragged N lane at w={w}")
+    tag = "" if w == W else f" -w {w}"
+    print(f"cuda vs cpu{tag}: {n}-read ragged lane with N bases, stdout "
           f"({outs[0][0].count(chr(10))} lines) and dumps byte-identical")
+    if MK is not None:
+        print(f"cuda vs cpu{tag}: CUDA run kernel launches {launches}, plain "
+              f"calls {plain}")
+        if launches <= 0 or plain != 0:
+            fail(f"the -w {w} CUDA run did not run every batch through the "
+                 f"kernel")
+    return launches
 
 
 def run_counted(torch, MK, run, argv):
@@ -805,10 +830,8 @@ def phase_tile_fuzz(torch, MK, HashSpec):
     syncmer modes), w = 1, k = 31, s = 1 and s = k - 1, m = 1 and 65521,
     compact rows that overflow C in their first tile, B not a multiple of
     the warps per block, w = P, the widest tile window (4096) and one past
-    it (the scratch-ring kernel), and rows at unaligned addresses.  Returns
-    max_abs_err."""
-    from hash10x_tpu_torch.kernels.minimizer import sketch_bound
-    dev = torch.device("cuda")
+    it (the wide route; phase_wide has its own cases), and rows at
+    unaligned addresses.  Returns max_abs_err."""
     rng = np.random.default_rng(SEED + 4)
     wmax = MK.build().h10x_max_tile_w()
     cases = [  # (mode, k, w, kw, B, L, compact widths[, base offset])
@@ -839,40 +862,171 @@ def phase_tile_fuzz(torch, MK, HashSpec):
     for mode, k, w, kw, B, L, widths, off in cases:
         spec = HashSpec(k=k, w=w, seed=SEED)
         codes, lengths = _tile_rows(rng, B, L, k, w, mode)
-        buf = torch.empty(off + B * L, dtype=torch.uint8, device=dev)
-        c = buf[off:].view(B, L)
-        c.copy_(torch.from_numpy(codes))
-        ln = torch.from_numpy(lengths).to(dev)
         T, _ = tile_geometry(L - k + 1, k, w, mode)
-        for C in widths:
-            got = MK.sketch(spec, c, ln, mode=mode, compact_to=C, **kw)
-            torch.cuda.synchronize()
-            ref = MK.sketch_plain(spec, c, ln, mode=mode, compact_to=C, **kw)
-            torch.cuda.synchronize()
-            max_err = max(max_err, float((got[0] - ref[0]).abs().max()))
-            same = all(torch.equal(a, b) for a, b in zip(got, ref))
-            print(f"tile fuzz {mode} k={k} w={w} {kw} B={B} L={L} C={C} "
-                  f"offset {off} (tile {T} positions): "
-                  f"{'equal' if same else 'DIFFERENT'} (emitted "
-                  f"{int(got[2].sum())}, overflow {int(got[3].sum())})")
-            if not same:
-                fail(f"tile fuzz: kernel != plain for {mode} k={k} w={w} "
-                     f"{kw} L={L} C={C}")
-            if w > wmax and C == 0:
-                # the thread-per-read sketch_kernel_wide: no lane runs it
-                dms = kernel_device_ms(torch, MK.launcher(spec, c, ln),
-                                       n=5)
-                ms, plain_ms = time_kernel_plain(torch, MK, spec, c, ln, {},
-                                                 n=3, warm=1)
-                nbytes, ops, bound, by = sketch_bound(B, L, L - k + 1, k)
-                print(f"sketch_kernel_wide w={w} B={B} L={L} dense: "
-                      f"{dms:.4f} device ms per launch; wrapper {ms:.4f} "
-                      f"ms/call, plain {plain_ms:.4f} ms/call (CUDA events "
-                      f"over 2x3 calls each); {nbytes} bytes, {ops} "
-                      f"operations, bound {bound:.5f} ms ({by}); bound "
-                      f"share {bound / dms:.4f}")
-        del buf, c, ln
+        max_err = max(max_err, check_parity(
+            torch, MK, spec, codes, lengths, widths, dict(mode=mode, **kw),
+            f"tile fuzz {mode} k={k} w={w} {kw} B={B} L={L}",
+            f"offset {off} (tile {T} positions)", off))
     return max_err
+
+
+def check_parity(torch, MK, spec, codes, lengths, widths, kw, what,
+                 note="", off=0):
+    """Kernel == plain bit for bit on all four outputs at each compact
+    width, with the rows starting ``off`` bytes into a device buffer.
+    Returns max_abs_err."""
+    dev = torch.device("cuda")
+    B, L = codes.shape
+    buf = torch.empty(off + B * L, dtype=torch.uint8, device=dev)
+    c = buf[off:].view(B, L)
+    c.copy_(torch.from_numpy(codes))
+    ln = torch.from_numpy(lengths).to(dev)
+    max_err = 0.0
+    for C in widths:
+        got = MK.sketch(spec, c, ln, compact_to=C, **kw)
+        torch.cuda.synchronize()
+        ref = MK.sketch_plain(spec, c, ln, compact_to=C, **kw)
+        torch.cuda.synchronize()
+        max_err = max(max_err, float((got[0] - ref[0]).abs().max()))
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        print(f"{what} C={C} {note}: {'equal' if same else 'DIFFERENT'} "
+              f"(emitted {int(got[2].sum())}, overflow {int(got[3].sum())})")
+        if not same:
+            fail(f"kernel != plain: {what} C={C}")
+    return max_err
+
+
+WIDE_B, WIDE_L, WIDE_W = 4096, 1 << 15, 5000  # the crib's geometry
+WIDE_SUBSET = 64     # rows of the full-card shape held against the plain
+WIDE_CLI_W = 5000    # -w of the CLI check on the ragged lane
+
+
+def _wide_rows(rng, B, L, k, w):
+    """Rows aimed at the wide route's block edges (multiples of w): at each
+    edge t0 a row from 5 on gets one of an N making position t0 the first
+    invalid one, an N making t0 - 1 the last invalid one, or a run of
+    w - 1, w or w + 1 valid positions straddling t0.  Row 0 is poly-A
+    (every hash ties), rows 1-4 have k - 1, k, L and k + w - 2 bases; the
+    rest are ragged, with scattered Ns."""
+    P = L - k + 1
+    codes = rng.integers(0, 4, size=(B, L)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.0005] = 4
+    lengths = np.where(rng.random(B) < 0.5, L,
+                       rng.integers(0, L + 1, size=B)).astype(np.int32)
+    for t0 in range(w, P, w):
+        for r in range(5, B):
+            kind = (r + t0 // w) % 5
+            if kind == 0:
+                codes[r, t0 + k - 1] = 4
+            elif kind == 1:
+                codes[r, t0 - 1] = 4
+            else:
+                run = w - 3 + kind                    # w - 1, w, w + 1
+                st = t0 - int(rng.integers(1, run))
+                end = min(st + run + k - 1, L)        # first base past it
+                codes[r, st:end] &= 3
+                if st >= 1:
+                    codes[r, st - 1] = 4
+                if end < L:
+                    codes[r, end] = 4
+    codes[0] = 0
+    lengths[:5] = [L, k - 1, k, L, min(L, k + w - 2)]
+    return codes, lengths
+
+
+def phase_wide(torch, MK, HashSpec):
+    """The wide route (minimizer windows wider than the tile kernel's):
+    kernel == plain bit for bit, dense and compacted, at w = 4,097, 5,000
+    and 8,191 on rows of 3w positions aimed at the block edges, at w > P,
+    at B not a multiple of the compaction's rows per block, at an
+    unaligned base offset, and on a 64-row subset of the full-card shape
+    (4,096 x 32,768, w = 5,000, dense and C = 64).  Times: the PERF row's
+    shape (33 x 12,288, w = 4,097, dense; device, wrapper and plain), the
+    full-card shape (device and wrapper, dense and C = 64), the tile kernel
+    at w = 4,096 beside the wide route at w = 4,097 on it, and the CLI
+    check's shape (1,024 reads of 150 bases, w = 5,000, the engine's C).
+    Returns (max_abs_err, ms, plain_ms, device_ms, shape) at the CLI
+    check's shape for the kernels line."""
+    from hash10x_tpu_torch.kernels.minimizer import sketch_bound
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 5)
+    wmax = MK.build().h10x_max_tile_w()
+    cases = [  # (w, B, L, compact widths, base offset)
+        (wmax + 1, 33, 3 * (wmax + 1) + K - 1, (0, 8, 64), 0),
+        (5000, 37, 3 * 5000 + K - 1, (0, 8, 64), 0),
+        (8191, 33, 3 * 8191 + K - 1, (0, 8), 0),
+        (5000, 129, 3000, (0, 1, 8), 0),             # w > P: short runs
+        (wmax + 1, 33, 3 * (wmax + 1) + K + 9, (0, 16), 5),
+    ]
+    max_err = 0.0
+    for w, B, L, widths, off in cases:
+        codes, lengths = _wide_rows(rng, B, L, K, w)
+        max_err = max(max_err, check_parity(
+            torch, MK, HashSpec(k=K, w=w, seed=SEED), codes, lengths,
+            widths, {}, f"wide w={w} B={B} L={L}", f"offset {off}", off))
+
+    def times(what, spec, c, ln, C, plain=True, n=5):
+        dms = kernel_device_ms(torch, MK.launcher(spec, c, ln, compact_to=C),
+                               n=n)
+        ms, plain_ms = time_kernel_plain(torch, MK, spec, c, ln,
+                                         dict(compact_to=C), n=max(n // 2, 3),
+                                         warm=1, plain=plain)
+        B, L = c.shape
+        nbytes, ops, bound, by = sketch_bound(B, L, C or L - spec.k + 1,
+                                              spec.k)
+        print(f"{what} B={B} L={L} w={spec.w} C={C}: {dms:.5f} device ms "
+              f"per launch (over {n}); wrapper {ms:.5f} ms/call, plain "
+              f"{'not timed' if plain_ms is None else f'{plain_ms:.4f}'} "
+              f"ms/call (CUDA events over 2x3 calls each); {nbytes} bytes, "
+              f"{ops} operations, bound {bound:.5f} ms ({by}); bound share "
+              f"{bound / dms:.4f}")
+        return ms, plain_ms, dms
+
+    # the PERF row's shape, as timed since the route was added
+    spec = HashSpec(k=K, w=wmax + 1, seed=SEED)
+    L = 3 * wmax
+    codes, lengths = _tile_rows(rng, 33, L, K, wmax + 1, "minimizer")
+    times("wide route", spec, torch.from_numpy(codes).to(dev),
+          torch.from_numpy(lengths).to(dev), 0)
+
+    # the full-card shape: genome rows (N blocks, short rows, ragged tails)
+    codes, lengths = _genome_rows(rng, WIDE_B, WIDE_L, K)
+    c = torch.from_numpy(codes).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    del codes
+    spec = HashSpec(k=K, w=WIDE_W, seed=SEED)
+    for C in (0, 64):
+        got = MK.sketch(spec, c, ln, compact_to=C)
+        torch.cuda.synchronize()
+        sub = slice(0, WIDE_SUBSET)
+        ref = MK.sketch_plain(spec, c[sub], ln[sub], compact_to=C)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a[sub], b) for a, b in zip(got, ref))
+        max_err = max(max_err, float((got[0][sub] - ref[0]).abs().max()))
+        print(f"wide w={WIDE_W} B={WIDE_B} L={WIDE_L} C={C}: rows "
+              f"0-{WIDE_SUBSET - 1} {'equal' if same else 'DIFFERENT'} "
+              f"(emitted {int(got[2].sum())} in all rows, overflow "
+              f"{int(got[3].sum())})")
+        if not same:
+            fail(f"kernel != plain: wide full-card shape C={C}")
+        del got, ref
+        times("wide route", spec, c, ln, C, plain=False)
+    lengths = torch.full_like(ln, WIDE_L)
+    for w in (wmax, wmax + 1):
+        times("tile kernel" if w <= wmax else "wide route",
+              HashSpec(k=K, w=w, seed=SEED), c, lengths, 0, plain=False)
+    del c, ln, lengths
+    torch.cuda.empty_cache()
+
+    # the CLI check's shape, for the kernels line
+    spec = HashSpec(k=K, w=WIDE_CLI_W, seed=SEED)
+    codes, lengths = _batch(rng, 1024, READ_LEN, K, WIDE_CLI_W)
+    lengths[:] = READ_LEN
+    C = 24  # Engine._compact_rows(130) at w = 5,000
+    ms, plain_ms, dms = times(
+        "wide route", spec, torch.from_numpy(codes).to(dev),
+        torch.from_numpy(lengths).to(dev), C, n=20)
+    return max_err, ms, plain_ms, dms, (1024, READ_LEN, C, K, "minimizer")
 
 
 class StageLog(io.StringIO):
@@ -1383,6 +1537,7 @@ def main() -> int:
     from hash10x_tpu_torch.crib.crib import _ROWS
     crib = phase_crib_parity(torch, MK, HashSpec, _ROWS["cuda"])
     fuzz_err = phase_tile_fuzz(torch, MK, HashSpec)
+    wide = phase_wide(torch, MK, HashSpec)
     elapsed("phases 1-3")
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1395,6 +1550,7 @@ def main() -> int:
         eng, text, launches = phase_main(torch, MK, run, lane)
         phase_c_ref(torch, st, run, eng, text, reads, bc_ids, tmp)
         phase_cuda_vs_cpu(run, tmp)
+        wide_launches = phase_cuda_vs_cpu(run, tmp, WIDE_CLI_W, MK)
         main_dumps = write_dumps(eng, tmp, "main")
         elapsed("phases 4-6")
         del eng
@@ -1426,6 +1582,9 @@ def main() -> int:
     kernels.append(kernel_entry(
         "seqhash_sketch_kmer_crib", crib_launches, crib[0], *crib[1:],
         (crib_rows, 1 << 15, (1 << 15) - K + 1, K, "kmer")))
+    err, *times, shape = wide
+    kernels.append(kernel_entry("seqhash_sketch_minimizer_wide",
+                                wide_launches, err, *times, shape))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

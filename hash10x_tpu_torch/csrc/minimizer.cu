@@ -63,9 +63,37 @@
 // parameter, so each mode's kernel holds only its own emission code and
 // registers.
 //
-// Minimizer windows wider than kMaxTileW take sketch_kernel_wide instead: one
-// thread per read with a monotone deque in a scratch ring in device memory
-// that the wrapper passes, O(1) amortised work per base.
+// Minimizer windows wider than kMaxTileW (the wide route) would need a halo
+// of w - 1 positions on each side, so they take three position-parallel
+// passes instead, with O(log) work per position whatever w is and nothing
+// w-sized in shared memory (van Herk / Gil-Werman window minima):
+//   1. Hash: sketch_kernel<kHashes> (the kmer body, halo 0, bit 0 left
+//      clear) writes every position's canonical hash and forward bit,
+//      dense, into out_h/out_f, or into a (B, P) scratch when compacting.
+//   2. Window: each row is cut into blocks of w positions from position 0,
+//      and one CUDA block takes block j of one row.  It runs an inclusive
+//      prefix arg-lexmin over (hash, position) of block j + 1 up to its
+//      first invalid position f1 (the args go to a (B, P) int32 scratch;
+//      later positions are never asked for), then a suffix arg-lexmin of
+//      block j, segmented at every run break, from the right, chunk by
+//      chunk (warp shuffles, then the warps' aggregates in shared memory,
+//      then a carry into the next chunk).  A window of w valid positions
+//      starting at s then has argmin lexmin(suffix[s], prefix[s + w - 1]),
+//      and a run [s, re) shorter than w lexmin(suffix[s], prefix[re - 1])
+//      (it spans at most two blocks).  Window starts are the valid s with
+//      s <= max(run end - w, run start) (seqhash_jnp's rule); each sets
+//      bit 0 of flags[argmin], skipping an argmin equal to the previous
+//      position's.  Writers of one flag byte store the same value, so the
+//      race is benign, and no state passes between CUDA blocks.
+//   3. Compact (C > 0): a warp per row ranks the marks in position order
+//      with ballots, 16 groups of 32 positions per step, and writes them
+//      with an exact overflow count.
+// Bytes of the wide route: pass 1 is the kmer route's (1 + 9 bytes per
+// position); pass 2 reads each hash about twice (own block's suffix, the
+// previous block's prefix, mostly from L2) and writes and reads 4 bytes of
+// prefix args; compacting writes pass 1 into the scratch and reads a flags
+// byte per position back.  Its bound is the same sketch_bound as every
+// route's (each input read once, each output written once).
 //
 // Outputs (row width R = C when compacting, else P = L - k + 1):
 //   out_h  (B, R) int64  canonical hashes; INT64_MAX where nothing is held
@@ -85,9 +113,13 @@ constexpr int kTileTarget = 1024;  // own positions per tile on long rows
 constexpr int kMaxTileW = 4096;    // widest minimizer window of sketch_kernel
 constexpr int kWarpsPerBlock = 4;
 constexpr int kMaxSmem = 232448;   // shared bytes a block may use on sm_90
-constexpr int kWideThreads = 128;
+constexpr int kScanThreads = 512;  // most threads of a wide-route scan block
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kCompactGroups = 16; // 32-position ballot groups per step
 
-enum Mode { kKmer = 0, kMinimizer = 1, kModimizer = 2, kSyncmer = 3 };
+// kHashes is the wide route's first pass: kmer's hashes, no emission.
+enum Mode { kKmer = 0, kMinimizer = 1, kModimizer = 2, kSyncmer = 3,
+            kHashes = 4 };
 
 // One call's tile shape, the same for every row.
 struct Geometry {
@@ -105,6 +137,7 @@ __host__ __device__ constexpr int ceil_div(int a, int b) {
   return (a + b - 1) / b;
 }
 __host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
+__host__ __device__ constexpr int round_up32(int x) { return (x + 31) & ~31; }
 __host__ __device__ constexpr int odd_ceil(int x) { return x | 1; }
 
 Geometry geometry(int P, int k, int w, int mode, int s) {
@@ -279,7 +312,7 @@ __global__ void sketch_kernel(const uint8_t* __restrict__ codes,
             const uint64_t first = ss[i];
             e = true;
             for (int j = 1; j <= span; ++j) e &= ss[i + j] >= first;
-          } else {
+          } else if (mode == kMinimizer) {
             e = is_minimizer(hs, x, w);
           }
         }
@@ -311,149 +344,259 @@ __global__ void sketch_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
-// Minimizer mode for w > kMaxTileW: one thread per read, a monotone deque
-// of (hash, position << 1 | forward) over the current run in a (capacity,
-// B) scratch ring (read b owns column b), front = the window's leftmost
-// minimum.
-__global__ void sketch_kernel_wide(const uint8_t* __restrict__ codes,
-                               const int32_t* __restrict__ lengths, int B,
-                               int L, int k, int w, uint64_t factor1,
-                               int shift1, int C, uint64_t* ring_h,
-                               uint32_t* ring_pf, int ring_mask,
-                               int64_t* __restrict__ out_h,
-                               uint8_t* __restrict__ out_f,
-                               int32_t* __restrict__ over) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int P = L - k + 1;
-  const bool compact = C > 0;
-  const int R = compact ? C : P;
-  const uint8_t* cr = codes + (int64_t)b * L;
-  int64_t* oh = out_h + (int64_t)b * R;
-  uint8_t* of = out_f + (int64_t)b * R;
-  const int len = min(max(lengths[b], 0), L);
-  auto H = [&](int i) -> uint64_t& {
-    return ring_h[(int64_t)(i & ring_mask) * B + b];
-  };
-  auto PF = [&](int i) -> uint32_t& {
-    return ring_pf[(int64_t)(i & ring_mask) * B + b];
-  };
+// (hash, position) pairs in lexicographic order: the leftmost minimum wins.
+__device__ __forceinline__ bool lex_less(uint64_t h1, int p1, uint64_t h2,
+                                         int p2) {
+  return h1 < h2 || (h1 == h2 && p1 < p2);
+}
 
-  const uint64_t mask = (1ull << (2 * k)) - 1;
-  const int rc_top = 2 * (k - 1);
-  uint64_t fwd = 0, rc = 0;
-  int run_bases = 0;
-  int head = 0, tail = 0;
-  int run_start = -1, run_last = -1, last_emit = -1, n_emit = 0;
+// Pass 2 of the wide route (see the header): CUDA block (b, j) takes block j
+// = [bs, be) of row b's w-blocks and sets bit 0 of flags at the argmin of
+// every window start in it.  hashes/flags are pass 1's dense (B, P) grids;
+// pre is a (B, P) int32 scratch that only this block reads back.
+__global__ void __launch_bounds__(kScanThreads)
+    wide_window_marks(const int64_t* __restrict__ hashes, uint8_t* flags,
+                      int32_t* pre, int P, int w, int nblk) {
+  __shared__ uint64_t tot_h[2][kScanWarps];  // warp aggregates, two chunks
+  __shared__ int tot_a[2][kScanWarps];
+  __shared__ int tot_e[2][kScanWarps];
+  __shared__ int tot_f[2][kScanWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockDim.x, nw = nt >> 5;
+  const int64_t b = blockIdx.x / nblk;
+  const int j = (int)(blockIdx.x % nblk);
+  const uint64_t* hs = (const uint64_t*)hashes + b * P;
+  uint8_t* fl = flags + b * P;
+  int32_t* pr = pre + b * P;
+  const int bs = j * w;                                   // block j: [bs, be)
+  const int be = (int)min((int64_t)bs + w, (int64_t)P);   // block j + 1: [be, q1)
+  const int q1 = (int)min((int64_t)be + w, (int64_t)P);
+  const bool full = (int64_t)bs + w == be;                // not cut by P
+  int buf = 0;
 
-  auto emit = [&](int i) {
-    const int p = (int)(PF(i) >> 1);
-    if (p == last_emit) return;  // window argmins repeat, never go back
-    last_emit = p;
-    if (compact) {
-      if (n_emit < C) {
-        oh[n_emit] = (int64_t)H(i);
-        of[n_emit] = (uint8_t)(1u | ((PF(i) & 1u) << 1));
+  // Prefix arg-lexmin over [be, p) of block j + 1, stopping at its first
+  // invalid position f1 (the end of the run that enters it).  Each chunk
+  // of nt positions: a warp scan, then every warp scans the carry and the
+  // warps' aggregates across its lanes (lane 0 the carry, lane i warp
+  // i - 1), so that lane `warp` holds what comes before its warp.  The next
+  // chunk's hashes are loaded before this chunk's scans.
+  int f1 = q1;
+  uint64_t ch = (uint64_t)kPad;  // carry: lexmin of the chunks before
+  int ca = INT32_MAX;
+  uint64_t h_next = be + tid < q1 ? __ldg(hs + be + tid) : (uint64_t)kPad;
+  for (int c0 = be; c0 < f1; c0 += nt, buf ^= 1) {
+    const int p = c0 + tid;
+    uint64_t h = h_next;
+    h_next = p + nt < q1 ? __ldg(hs + p + nt) : (uint64_t)kPad;
+    int a = p;
+    const int bad = p < q1 && h == (uint64_t)kPad ? p : INT32_MAX;
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint64_t h2 = __shfl_up_sync(~0u, h, d);
+      const int a2 = __shfl_up_sync(~0u, a, d);
+      if (lane >= d && lex_less(h2, a2, h, a)) {
+        h = h2;
+        a = a2;
       }
-    } else {
-      of[p] |= 1;
     }
-    ++n_emit;
-  };
-  // a run shorter than w never completed a window: emit its leftmost minimum
-  auto finish_run = [&]() {
-    if (run_start >= 0 && run_last - run_start + 1 < w && tail > head)
-      emit(head);
-    head = tail = 0;
-    run_start = run_last = -1;
-  };
-
-  for (int i = 0; i < len; ++i) {
-    const uint32_t c = cr[i];
-    if (c > 3) {
-      finish_run();
-      run_bases = 0;
-    } else {
-      fwd = ((fwd << 2) | c) & mask;
-      rc = (rc >> 2) | ((uint64_t)(3 - c) << rc_top);
-      ++run_bases;
+    const int wbad = __reduce_min_sync(~0u, bad);
+    if (lane == 31) {
+      tot_h[buf][warp] = h;
+      tot_a[buf][warp] = a;
     }
-    if (i < k - 1) continue;
-    const int p = i - k + 1;
-    if (run_bases < k) {
-      if (!compact) {
-        oh[p] = kPad;
-        of[p] = 0;
+    if (lane == 0) tot_e[buf][warp] = wbad;
+    __syncthreads();
+    uint64_t sh = lane == 0     ? ch
+                  : lane <= nw ? tot_h[buf][lane - 1]
+                               : (uint64_t)kPad;
+    int sa = lane == 0 ? ca : lane <= nw ? tot_a[buf][lane - 1] : INT32_MAX;
+    const int cbad =
+        __reduce_min_sync(~0u, lane < nw ? tot_e[buf][lane] : INT32_MAX);
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint64_t h2 = __shfl_up_sync(~0u, sh, d);
+      const int a2 = __shfl_up_sync(~0u, sa, d);
+      if (lane >= d && lex_less(h2, a2, sh, sa)) {
+        sh = h2;
+        sa = a2;
       }
-      continue;
     }
-    const uint64_t hf = mix(fwd, factor1, shift1);
-    const uint64_t hr = mix(rc, factor1, shift1);
-    const uint32_t is_f = hf < hr ? 1u : 0u;
-    const uint64_t h = is_f ? hf : hr;
-    if (!compact) {
-      oh[p] = (int64_t)h;
-      of[p] = (uint8_t)(is_f << 1);
-    }
-    if (run_start < 0) run_start = p;
-    run_last = p;
-    const int ws = p - w + 1;
-    while (tail > head && (int)(PF(head) >> 1) < ws) ++head;
-    while (tail > head && H(tail - 1) > h) --tail;
-    H(tail) = h;
-    PF(tail) = ((uint32_t)p << 1) | is_f;
-    ++tail;
-    if (ws >= run_start) emit(head);
+    const uint64_t ih = __shfl_sync(~0u, sh, warp);
+    const int ia = __shfl_sync(~0u, sa, warp);
+    if (lex_less(ih, ia, h, a)) a = ia;
+    f1 = min(f1, cbad);
+    if (p < f1) pr[p] = a;
+    ch = __shfl_sync(~0u, sh, nw);
+    ca = __shfl_sync(~0u, sa, nw);
   }
-  finish_run();
+  __syncthreads();  // pr[] is read below by other threads of the block
 
-  if (compact) {
-    for (int r = min(n_emit, C); r < C; ++r) {
-      oh[r] = kPad;
-      of[r] = 0;
+  // Suffix arg-lexmin of block j, segmented at run breaks, from the right.
+  // State: (h, a) = lexmin of [p, e], e = the segment's last position,
+  // f = whether e lies in the range scanned so far.  The carry always ends
+  // a segment (block j's last position does), so it stops every scan.
+  ch = (uint64_t)kPad;
+  ca = INT32_MAX;
+  int ce = -1;
+  const int c_last = bs + (be - bs - 1) / nt * nt;
+  h_next = c_last + tid < be ? __ldg(hs + c_last + tid) : (uint64_t)kPad;
+  for (int c0 = c_last; c0 >= bs; c0 -= nt, buf ^= 1) {
+    const int p = c0 + tid;
+    const bool in = p < be;
+    uint64_t h = h_next;
+    if (c0 > bs) h_next = __ldg(hs + p - nt);
+    const int valid = h != (uint64_t)kPad;
+    int nv = __shfl_down_sync(~0u, valid, 1);           // valid[p + 1]
+    if (lane == 31) nv = p + 1 < be && __ldg(hs + p + 1) != (uint64_t)kPad;
+    nv = nv && p + 1 < be;
+    int pv = __shfl_up_sync(~0u, valid, 1);             // valid[p - 1]
+    if (lane == 0) pv = in && p >= 1 && __ldg(hs + p - 1) != (uint64_t)kPad;
+    int a = p, e = p;
+    int f = !valid || !nv;  // p ends its segment
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint64_t h2 = __shfl_down_sync(~0u, h, d);
+      const int a2 = __shfl_down_sync(~0u, a, d);
+      const int e2 = __shfl_down_sync(~0u, e, d);
+      const int f2 = __shfl_down_sync(~0u, f, d);
+      if (lane + d < 32 && !f) {
+        if (lex_less(h2, a2, h, a)) {
+          h = h2;
+          a = a2;
+        }
+        e = e2;
+        f = f2;
+      }
     }
-    over[b] = max(n_emit - C, 0);
-  } else {
-    for (int p = max(len - k + 1, 0); p < P; ++p) {
-      oh[p] = kPad;
-      of[p] = 0;
+    if (lane == 0) {
+      tot_h[buf][warp] = h;
+      tot_a[buf][warp] = a;
+      tot_e[buf][warp] = e;
+      tot_f[buf][warp] = f;
     }
-    over[b] = 0;
+    __syncthreads();
+    // the same segmented scan over lane i = warp i's aggregate, lane nw =
+    // the carry: lane warp + 1 then holds what comes after my warp
+    uint64_t sh = (uint64_t)kPad;
+    int sa = INT32_MAX, se = ce, sf = 1;
+    if (lane < nw) {
+      sh = tot_h[buf][lane];
+      sa = tot_a[buf][lane];
+      se = tot_e[buf][lane];
+      sf = tot_f[buf][lane];
+    } else if (lane == nw) {
+      sh = ch;
+      sa = ca;
+    }
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint64_t h2 = __shfl_down_sync(~0u, sh, d);
+      const int a2 = __shfl_down_sync(~0u, sa, d);
+      const int e2 = __shfl_down_sync(~0u, se, d);
+      const int f2 = __shfl_down_sync(~0u, sf, d);
+      if (lane + d < 32 && !sf) {
+        if (lex_less(h2, a2, sh, sa)) {
+          sh = h2;
+          sa = a2;
+        }
+        se = e2;
+        sf = f2;
+      }
+    }
+    const uint64_t ih = __shfl_sync(~0u, sh, warp + 1);
+    const int ia = __shfl_sync(~0u, sa, warp + 1);
+    const int ie = __shfl_sync(~0u, se, warp + 1);
+    if (!f) {
+      if (lex_less(ih, ia, h, a)) {
+        h = ih;
+        a = ia;
+      }
+      e = ie;
+    }
+    ch = __shfl_sync(~0u, sh, 0);
+    ca = __shfl_sync(~0u, sa, 0);
+    ce = __shfl_sync(~0u, se, 0);
+
+    // the window start at p, if any, and its argmin
+    int arg = -1;
+    if (in && valid) {
+      const bool run_start = !pv;
+      if (full && e == be - 1) {   // p's run reaches the end of block j
+        int x = -1;                // the window's last position in block j + 1
+        if (p == bs) {
+          arg = a;                 // the window is block j
+        } else if ((int64_t)p + w - 1 < f1) {
+          arg = a;                 // a full window into block j + 1
+          x = p + w - 1;
+        } else if (run_start) {    // a run [p, f1) shorter than w
+          arg = a;
+          if (f1 > be) x = f1 - 1;
+        }
+        if (x >= 0) {
+          const int a2 = pr[x];
+          if (lex_less(__ldg(hs + a2), a2, h, a)) arg = a2;
+        }
+      } else if (run_start) {
+        arg = a;                   // a run [p, e] inside block j, < w long
+      }
+    }
+    const int prev = __shfl_up_sync(~0u, arg, 1);
+    if (arg >= 0 && (lane == 0 || prev != arg)) fl[arg] |= 1;
   }
 }
 
-}  // namespace
-
-// Widest minimizer window of the tile kernel; wider ones take the scratch
-// ring below.
-extern "C" int h10x_max_tile_w() { return kMaxTileW; }
-
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
-// ring_h/ring_pf: a (ring_mask + 1, B) scratch deque for minimizer mode with
-// w > h10x_max_tile_w() (ring_mask + 1 a power of two >= w); null otherwise.
-extern "C" int h10x_sketch(const void* codes, const void* lengths, int B,
-                           int L, int k, int w, unsigned long long factor1,
-                           int shift1, int mode, unsigned long long m, int s,
-                           unsigned long long s_factor1, int s_shift1, int C,
-                           void* ring_h, void* ring_pf, int ring_mask,
-                           void* out_h, void* out_f, void* over,
-                           void* stream) {
-  if (B <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (mode == kMinimizer && w > kMaxTileW) {
-    sketch_kernel_wide<<<ceil_div(B, kWideThreads), kWideThreads, 0, st>>>(
-        (const uint8_t*)codes, (const int32_t*)lengths, B, L, k, w,
-        (uint64_t)factor1, shift1, C, (uint64_t*)ring_h, (uint32_t*)ring_pf,
-        ring_mask, (int64_t*)out_h, (uint8_t*)out_f, (int32_t*)over);
-    return (int)cudaGetLastError();
+// Pass 3 of the wide route, C > 0: a warp per row ranks the marks of the
+// dense (B, P) grids in position order and writes them to (B, C) rows.
+__global__ void compact_marks(const int64_t* __restrict__ hashes,
+                              const uint8_t* __restrict__ flags, int B, int P,
+                              int C, int64_t* __restrict__ out_h,
+                              uint8_t* __restrict__ out_f,
+                              int32_t* __restrict__ over) {
+  const int lane = threadIdx.x & 31;
+  const int64_t b = (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (b >= B) return;
+  const int64_t* hs = hashes + b * P;
+  const uint8_t* fl = flags + b * P;
+  int64_t* oh = out_h + b * C;
+  uint8_t* of = out_f + b * C;
+  int n_emit = 0;
+  for (int c0 = 0; c0 < P; c0 += 32 * kCompactGroups) {
+    uint32_t f[kCompactGroups];
+#pragma unroll
+    for (int i = 0; i < kCompactGroups; ++i) {
+      const int p = c0 + 32 * i + lane;
+      f[i] = p < P ? __ldg(fl + p) : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < kCompactGroups; ++i) {
+      const bool e = f[i] & 1u;
+      const unsigned bal = __ballot_sync(~0u, e);
+      const int slot = n_emit + __popc(bal & ((1u << lane) - 1u));
+      if (e && slot < C) {
+        oh[slot] = __ldg(hs + c0 + 32 * i + lane);
+        of[slot] = (uint8_t)(1u | (f[i] & 2u));
+      }
+      n_emit += __popc(bal);
+    }
   }
+  for (int r = min(n_emit, C) + lane; r < C; r += 32) {
+    oh[r] = kPad;
+    of[r] = 0;
+  }
+  if (lane == 0) over[b] = max(n_emit - C, 0);
+}
+
+// One launch of the tile kernel of `mode` over (B, L) into rows of width C
+// or P.
+int launch_tiles(int mode, const uint8_t* codes, const int32_t* lengths,
+                 int B, int L, int k, int w, uint64_t factor1, int shift1,
+                 uint64_t m, int s, uint64_t s_factor1, int s_shift1, int C,
+                 int64_t* out_h, uint8_t* out_f, int32_t* over,
+                 cudaStream_t st) {
   const Geometry g = geometry(L - k + 1, k, w, mode, s);
   const int wpb = std::max(1, std::min(kWarpsPerBlock, kMaxSmem / g.smem));
   const int bytes = wpb * g.smem;
   auto kernel = mode == kKmer        ? sketch_kernel<kKmer>
                 : mode == kMinimizer ? sketch_kernel<kMinimizer>
                 : mode == kModimizer ? sketch_kernel<kModimizer>
-                                     : sketch_kernel<kSyncmer>;
+                : mode == kSyncmer   ? sketch_kernel<kSyncmer>
+                                     : sketch_kernel<kHashes>;
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -461,8 +604,53 @@ extern "C" int h10x_sketch(const void* codes, const void* lengths, int B,
   }
   const int64_t items = C > 0 ? (int64_t)B : (int64_t)B * g.tiles;
   kernel<<<(unsigned)((items + wpb - 1) / wpb), wpb * 32, bytes, st>>>(
-      (const uint8_t*)codes, (const int32_t*)lengths, B, L, k, w,
-      (uint64_t)factor1, shift1, (uint64_t)m, s, (uint64_t)s_factor1,
-      s_shift1, C, g, (int64_t*)out_h, (uint8_t*)out_f, (int32_t*)over);
+      codes, lengths, B, L, k, w, factor1, shift1, m, s, s_factor1, s_shift1,
+      C, g, out_h, out_f, over);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Widest minimizer window of the tile kernel; wider ones take the wide
+// route's three passes.
+extern "C" int h10x_max_tile_w() { return kMaxTileW; }
+
+// Launches on `stream` and returns the first cudaGetLastError() that is not
+// 0 (0 = launched).  Scratch for minimizer mode with w > h10x_max_tile_w(),
+// null otherwise: pre a (B, P) int32 grid; hash_scratch (B, P) int64 and
+// flag_scratch (B, P) uint8 when C > 0 (dense rows use out_h/out_f).
+extern "C" int h10x_sketch(const void* codes, const void* lengths, int B,
+                           int L, int k, int w, unsigned long long factor1,
+                           int shift1, int mode, unsigned long long m, int s,
+                           unsigned long long s_factor1, int s_shift1, int C,
+                           void* pre, void* hash_scratch, void* flag_scratch,
+                           void* out_h, void* out_f, void* over,
+                           void* stream) {
+  if (B <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t* cd = (const uint8_t*)codes;
+  const int32_t* ln = (const int32_t*)lengths;
+  int64_t* oh = (int64_t*)out_h;
+  uint8_t* of = (uint8_t*)out_f;
+  int32_t* ov = (int32_t*)over;
+  if (mode == kMinimizer && w > kMaxTileW) {
+    const int P = L - k + 1;
+    int64_t* hs = C > 0 ? (int64_t*)hash_scratch : oh;
+    uint8_t* fl = C > 0 ? (uint8_t*)flag_scratch : of;
+    int rc = launch_tiles(kHashes, cd, ln, B, L, k, w, factor1, shift1, 0, 0,
+                          0, 0, 0, hs, fl, ov, st);
+    if (rc != 0) return rc;
+    const int nblk = ceil_div(P, w);
+    const int nt = std::min(kScanThreads, round_up32(std::min(w, P)));
+    wide_window_marks<<<(unsigned)((int64_t)B * nblk), nt, 0, st>>>(
+        hs, fl, (int32_t*)pre, P, w, nblk);
+    rc = (int)cudaGetLastError();
+    if (rc != 0 || C == 0) return rc;
+    const int rows = kWarpsPerBlock;
+    compact_marks<<<ceil_div(B, rows), rows * 32, 0, st>>>(hs, fl, B, P, C,
+                                                           oh, of, ov);
+    return (int)cudaGetLastError();
+  }
+  return launch_tiles(mode, cd, ln, B, L, k, w, factor1, shift1, m, s,
+                      s_factor1, s_shift1, C, oh, of, ov, st);
 }

@@ -13,7 +13,7 @@ coalesced stores (compacted rows ranked with a warp ballot).
 ``sketch`` launches the kernel for a CUDA tensor and raises when it cannot;
 it never gives way to the plain version there.  ``sketch_plain`` is the same
 function in plain torch (``core/seqhash.py`` plus an in-order compaction)
-and serves CPU tensors.  ``LAUNCHES`` counts kernel launches and
+and serves CPU tensors.  ``LAUNCHES`` counts kernel calls and
 ``PLAIN_CALLS`` counts plain-version calls made by ``sketch``.
 ``sketch_minimizer``, ``sketch_minimizer_compact`` and ``supported`` keep
 the JAX module's entry points; ``sketch_bound`` is the least time an H100
@@ -23,8 +23,10 @@ The kernel is built with ``nvcc`` for ``sm_90a`` into ``_build/`` (ignored by
 git) at first use, keyed by a hash of the source, and loaded with ctypes.
 It runs every mode of ``seqhash.sketch`` (``KERNEL_MODES``) for any batch
 size and any ``w``: minimizer windows wider than the tile kernel's
-(``h10x_max_tile_w``, 4096) take a thread-per-read body whose deque lives in
-a scratch ring in device memory that the wrapper passes.
+(``h10x_max_tile_w``, 4096) take the wide route, three position-parallel
+passes (hashes, window argmins over blocks of w positions, compaction)
+whose (B, P) scratch grids the wrapper allocates.  One ``sketch`` call
+counts one launch in ``LAUNCHES`` however many CUDA launches it makes.
 """
 
 from __future__ import annotations
@@ -105,7 +107,7 @@ def build() -> ctypes.CDLL:
     fn = lib.h10x_sketch
     ptr, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
     fn.argtypes = [ptr, ptr, i32, i32, i32, i32, u64, i32, i32, u64, i32,
-                   u64, i32, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr]
+                   u64, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
     fn.restype = ctypes.c_int
     lib.h10x_max_tile_w.restype = ctypes.c_int
     _max_tile_w = lib.h10x_max_tile_w()
@@ -255,7 +257,8 @@ def sketch(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor,
 
 def _launch(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor, out,
             mode: str, compact_to: int, m: int, syncmer_s: int) -> None:
-    """One kernel launch on :func:`sketch`'s checked, contiguous CUDA inputs
+    """One kernel call (one count in ``LAUNCHES``; the wide route's three
+    passes are one call) on :func:`sketch`'s checked, contiguous CUDA inputs
     into ``out`` = (hashes (B, R) int64, flags (B, R) uint8 with bit 0
     emitted and bit 1 forward, overflow (B,) int32)."""
     global LAUNCHES
@@ -265,22 +268,22 @@ def _launch(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor, out,
     sub = seqhash.smer_spec(spec, syncmer_s) if mode == "syncmer" else None
     lib = build()
     B, L = codes.shape
+    P = L - spec.k + 1
     dev = codes.device
     out_h, out_f, over = out
-    ring_h = ring_pf = None
-    ring = 0
+    scratch = [None, None, None]  # window args; hashes, flags if compacting
     if mode == "minimizer" and spec.w > _max_tile_w:
-        ring = 1 << (spec.w - 1).bit_length()  # a power of two >= w
-        ring_h = torch.empty((ring, B), dtype=torch.int64, device=dev)
-        ring_pf = torch.empty((ring, B), dtype=torch.int32, device=dev)
+        scratch[0] = torch.empty((B, P), dtype=torch.int32, device=dev)
+        if compact_to:
+            scratch[1] = torch.empty((B, P), dtype=torch.int64, device=dev)
+            scratch[2] = torch.empty((B, P), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.h10x_sketch(
         codes.data_ptr(), lengths.data_ptr(), B, L, spec.k, spec.w,
         spec.factor1, spec.shift1, KERNEL_MODES[mode], modulus,
         syncmer_s if sub else 0, sub.factor1 if sub else 0,
         sub.shift1 if sub else 0, compact_to,
-        ring_h.data_ptr() if ring else None,
-        ring_pf.data_ptr() if ring else None, max(ring - 1, 0),
+        *(t.data_ptr() if t is not None else None for t in scratch),
         out_h.data_ptr(), out_f.data_ptr(), over.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"sketch kernel launch failed: CUDA error {rc}")

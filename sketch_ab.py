@@ -5,9 +5,16 @@ processes.
 
     mkdir -p _archive/parent
     git archive <commit> | tar -x -C _archive/parent
-    python3 sketch_ab.py _archive/parent [--rounds 3] [--crib]
+    python3 sketch_ab.py _archive/parent [--rounds 3] [--crib | --wide]
 
-It builds chip_smoke.py's 800k-read / 50k-barcode lane once (and, with
+With --wide it times only the minimizer route for windows wider than the
+tile kernel's (w > 4,096), no lanes: the device and wrapper ms at 33 x
+12,288 with w = 4,097 (dense), at 4,096 x 32,768 genome rows with w = 5,000
+(dense and C = 64), and the tile kernel at w = 4,096 beside w = 4,097 on
+those rows, each after checking the kernel against ``sketch_plain`` (all
+rows at 33 x 12,288, the first 16 rows at 4,096 x 32,768).
+
+Otherwise it builds chip_smoke.py's 800k-read / 50k-barcode lane once (and, with
 --crib, its phase-11 diploid lane with two 100 Mb haplotype FASTAs), then
 runs one worker process per tree in the order other, this, this, other,
 other, this, ... (2 x rounds workers).  Each worker imports the package of
@@ -96,7 +103,9 @@ def make_lanes(CS, tmp, crib):
 
 def raw_launcher(torch, MK, seqhash, spec, c, ln, kw):
     """One launch of the tree's kernel library into preallocated outputs,
-    through its C interface (the same in every tree of the port)."""
+    through its C interface.  The tile routes take the same arguments in
+    every tree of the port: the three scratch arguments of the wide route
+    (earlier a ring's two pointers and its mask) are null or 0 here."""
     lib = MK.build()
     B, L = c.shape
     mode, C = kw["mode"], kw.get("compact_to", 0)
@@ -161,6 +170,41 @@ def profile_run(torch, MK, run, argv):
             [[name[:60], ms] for name, ms in top])
 
 
+def wide_worker(tree, torch, CS, MK, HashSpec):
+    """--wide: the w > 4,096 route's device and wrapper ms (see the module
+    docstring), through the tree's own launcher and sketch."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(CS.SEED + 5)
+    result = {"tree": tree}
+
+    def route(name, spec, c, ln, C, rows, n=5):
+        got = MK.sketch(spec, c[rows], ln[rows], compact_to=C)
+        ref = MK.sketch_plain(spec, c[rows], ln[rows], compact_to=C)
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise SystemExit(f"sketch_ab: {tree}: {name} kernel != plain")
+        del got, ref
+        result[f"{name} wrapper_ms"] = wrapper_ms(
+            torch, lambda: MK.sketch(spec, c, ln, compact_to=C), n, warm=1)
+        result[f"{name} device_ms"] = CS.kernel_device_ms(
+            torch, MK.launcher(spec, c, ln, compact_to=C), n)
+
+    codes, lengths = CS._tile_rows(rng, 33, 3 * 4096, CS.K, 4097, "minimizer")
+    c, ln = (torch.from_numpy(x).to(dev) for x in (codes, lengths))
+    route("wide 33x12288 w4097 dense", HashSpec(k=CS.K, w=4097, seed=CS.SEED),
+          c, ln, 0, slice(None))
+    codes, lengths = CS._genome_rows(rng, 4096, 1 << 15, CS.K)
+    c, ln = (torch.from_numpy(x).to(dev) for x in (codes, lengths))
+    del codes
+    spec = HashSpec(k=CS.K, w=5000, seed=CS.SEED)
+    for C in (0, 64):
+        route(f"wide 4096x32768 w5000 C{C}", spec, c, ln, C, slice(0, 16))
+    ln.fill_(1 << 15)
+    for w in (4096, 4097):
+        route(f"{'tile' if w == 4096 else 'wide'} 4096x32768 w{w} dense",
+              HashSpec(k=CS.K, w=w, seed=CS.SEED), c, ln, 0, slice(0, 16))
+    print(json.dumps(result), flush=True)
+
+
 def worker(tree, lanes_json):
     import torch
     sys.path.insert(0, os.path.abspath(tree))
@@ -172,6 +216,9 @@ def worker(tree, lanes_json):
     from hash10x_tpu_torch.hashspec import HashSpec
     from hash10x_tpu_torch.kernels import minimizer as MK
     lanes = json.loads(lanes_json)
+    if lanes.get("wide"):
+        wide_worker(tree, torch, CS, MK, HashSpec)
+        return
     dev = torch.device("cuda")
     rng = np.random.default_rng(CS.SEED)
     spec = HashSpec(k=CS.K, w=CS.W, seed=CS.SEED)
@@ -267,8 +314,11 @@ def main() -> int:
     results = []
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.monotonic()
-        lanes = make_lanes(CS, tmp, "--crib" in args)
-        print(f"lanes built in {time.monotonic() - t0:.1f} s", flush=True)
+        if "--wide" in args:
+            lanes = {"wide": True}
+        else:
+            lanes = make_lanes(CS, tmp, "--crib" in args)
+            print(f"lanes built in {time.monotonic() - t0:.1f} s", flush=True)
         for tree in [other, ROOT, ROOT, other] * (rounds // 2) + (
                 [other, ROOT] if rounds % 2 else []):
             r = subprocess.run([sys.executable, os.path.abspath(__file__),
