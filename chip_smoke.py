@@ -33,7 +33,10 @@ Phases (any failure exits non-zero):
                 (sketch_bound)
   4. main     - the 800k-read / 50k-barcode lane of bench.py as an .fqb,
                 through hash10x_tpu_torch.cli.main on CUDA; every batch must go
-                through the kernel (launch counter > 0, plain calls == 0)
+                through the kernel (launch counter > 0, plain calls == 0) in
+                multi-batch steps: every step one CUDA graph replay holding
+                one sketch launch (launches = replays + one warm-up launch
+                per captured graph), fewer launches than batches
   5. c_ref    - native/c_ref/hash10x_ref.c on the same lane: equal count
                 table, byte-identical report, and byte-identical cluster dump
                 on a 50k-read sub-lane
@@ -70,8 +73,9 @@ Phases (any failure exits non-zero):
                 walls of the native loader and the numpy parser
  15. shards   - the 800k lane through the CLI on CUDA with --shards 4 and with
                 --shards 2: stdout (table slots masked), --writeCounts and
-                --writeClusters byte-identical to phase 4's; the same 392
-                kernel launches, 0 plain calls; stage walls and lines
+                --writeClusters byte-identical to phase 4's; one kernel
+                launch per batch and pass (392; the sharded path sends no
+                multi-batch steps), 0 plain calls; stage walls and lines
  16. lanes    - the lane with --shards 4 --laneCapacity 4096 (overflows: the
                 pass runs again with doubled lanes, output unchanged), and
                 with --labelBlocks 1048576 (labels unchanged)
@@ -87,6 +91,16 @@ Phases (any failure exits non-zero):
                 (the lane stays on the device): both tables byte-equal to
                 each other and to phase 8's native/c_ref dump; kernel
                 launches > 0 and plain calls 0 in the recount
+ 20. steps    - the 800k lane through the library API at flush_batches 16, 5
+                and 1 and with kernel_compact off: report, --writeCounts and
+                --writeClusters byte-identical to phase 4's; per setting the
+                steps, replays and launches of a pass, the count and
+                filter+incidence walls (first pass, then three reset()
+                passes in turns) and the device busy share of a traced pass;
+                one replayed step's device and host ms against the same step
+                run eagerly (its kernels back to back on the device), at
+                S = 16 and 1; the sketch at the stacked shape (16 x 4,096
+                reads) against its plain version, timed as in phase 3
 The last two lines of stdout before the result are a JSON line describing
 the kernels and the card's name and power limit; the last line is the JSON
 result {"ok": true, "device": {...}}.
@@ -339,7 +353,7 @@ def write_fqb(path, reads, bc_ids, n_codes):
                        read_len=READ_LEN))
 
 
-def phase_main(torch, MK, run, lane):
+def phase_main(torch, MK, ES, run, lane):
     argv = ["-k", str(K), "-w", str(W), "-r", str(SEED), "-B", "22",
             "--minCount", "2", "--maxCount", "64", "--friendShare", "8",
             "--readFQB", lane, "--hashInfo", "--hashDist", "--codeClusters",
@@ -348,15 +362,27 @@ def phase_main(torch, MK, run, lane):
     torch.cuda.reset_peak_memory_stats()
     MK.LAUNCHES = 0
     MK.PLAIN_CALLS = 0
+    ES.REPLAYS = 0
     t0 = time.monotonic()
     eng = run(argv, out, err)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches, plain = MK.LAUNCHES, MK.PLAIN_CALLS
+    launches, plain, replays = MK.LAUNCHES, MK.PLAIN_CALLS, ES.REPLAYS
     sys.stderr.write(err.getvalue())
-    print(f"main path: kernel launches {launches}, plain calls {plain}")
+    steps = eng.stats["dispatches"]
+    n_batches = len(eng._lane_cache[3])
+    graphs = list(eng._lane_cache[4]._graphs.values())
+    print(f"main path: {steps} steps over {n_batches} batches per pass "
+          f"(count and incidence), {replays} CUDA graph replays of "
+          f"{len(graphs)} captured graphs, kernel launches {launches}, plain "
+          f"calls {plain}")
     if launches <= 0 or plain != 0:
         fail("the main path did not run every batch through the kernel")
+    if (replays != steps or any(g.launches != 1 for g in graphs)
+            or launches != replays + len(graphs)
+            or launches >= 2 * n_batches):
+        fail("the main path's steps were not one replay with one sketch "
+             "launch each (plus one warm-up launch per graph)")
     walls = stage_walls(err.getvalue())
     phases = {"count": walls["count"],
               "filter+incidence": walls["filter"] + walls["incidence"],
@@ -372,7 +398,7 @@ def phase_main(torch, MK, run, lane):
     text = out.getvalue()
     if "table slots" not in text or "code 0 nKmers" not in text:
         fail("main path output lacks --hashInfo or --clusterReport lines")
-    return eng, text, launches
+    return eng, text, launches, n_batches
 
 
 def stage_walls(err_text):
@@ -649,6 +675,149 @@ def phase_reset(torch, MK, tmp):
           f"engine's table and to c_ref ({m} (hash, count) pairs); kernel "
           f"launches {launches}, plain calls 0; recount wall {wall:.3f} s "
           f"(lane on the device); stats {eng.stats}")
+
+
+STEP_SETTINGS = (("S=16", {"flush_batches": 16}), ("S=5", {"flush_batches": 5}),
+                 ("S=1", {"flush_batches": 1}),
+                 ("S=16 compact off", {"kernel_compact": False}))
+
+
+def phase_steps(torch, MK, ES, lane, main_text, main_dumps, tmp, C):
+    """Phase 20: the 800k lane through the library API at each of
+    STEP_SETTINGS (the CLI has no flag for them): report and dumps
+    byte-identical to phase 4's; per setting the steps, replays and
+    launches of a pass, the count and filter+incidence walls and the busy
+    share; one replayed step against the same step run eagerly; the sketch
+    at the stacked shape.  Returns the kernels-line tuple of that shape."""
+    import dataclasses
+    from hash10x_tpu_torch.bench import profiled_pass
+    from hash10x_tpu_torch.engine import Engine, EngineConfig
+    from hash10x_tpu_torch.hashspec import HashSpec
+    from hash10x_tpu_torch.io.fqb import load_fqb
+    from hash10x_tpu_torch.utils.timing import kernel_device_ms as device_ms
+    fqb = load_fqb(lane)
+    spec = HashSpec(k=K, w=W, seed=SEED)
+    want = "".join(line for line in main_text.splitlines(True)
+                   if line.startswith("code "))
+
+    def passes(eng):
+        """reset(), then the count and filter+incidence walls."""
+        eng.reset()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        eng.count(fqb)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        eng.filter()
+        eng.incidence(fqb)
+        torch.cuda.synchronize()
+        return {"count_s": t1 - t0,
+                "filter_incidence_s": time.monotonic() - t1}
+
+    engines, walls = {}, {}
+    for name, kw in STEP_SETTINGS:
+        eng = Engine(EngineConfig(spec=spec, table_bits=22, min_count=2,
+                                  max_count=64, min_friend_share=8, **kw),
+                     "cuda", log=None)
+        MK.LAUNCHES = MK.PLAIN_CALLS = ES.REPLAYS = 0
+        first = passes(eng)
+        launches, plain, replays = MK.LAUNCHES, MK.PLAIN_CALLS, ES.REPLAYS
+        steps = eng.stats["dispatches"]
+        eng.cluster()
+        eng.split()
+        out = io.StringIO()
+        eng.report(out)
+        dumps = write_dumps(eng, tmp, "steps")
+        if out.getvalue() != want or not all(
+                same_files(a, b) for a, b in zip(dumps, main_dumps)):
+            fail(f"steps {name}: report or dumps != phase 4's")
+        if plain or replays != steps or launches <= 0:
+            fail(f"steps {name}: {steps} steps, {replays} replays, "
+                 f"{launches} launches, {plain} plain calls")
+        print(f"steps {name}: report ({want.count(chr(10))} lines), counts "
+              f"and clusters dumps byte-identical to phase 4; {steps} steps "
+              f"(count and incidence), {replays} replays, kernel launches "
+              f"{launches}, plain calls 0; first pass (captures included) "
+              f"count {first['count_s']:.4f} s, filter+incidence "
+              f"{first['filter_incidence_s']:.4f} s")
+        engines[name] = eng
+        walls[name] = []
+    for _ in range(3):   # warm passes, the settings in turns
+        for name, _ in STEP_SETTINGS:
+            walls[name].append(passes(engines[name]))
+    for name, _ in STEP_SETTINGS:
+        eng = engines[name]
+        prof = profiled_pass(torch.device("cuda"),
+                             lambda: (passes(eng), None, None))
+        med = {k: float(np.median([w[k] for w in walls[name]]))
+               for k in walls[name][0]}
+        print(f"steps {name} warm walls (median of 3 [min-max]): " + ", ".join(
+            f"{k[:-2]} {med[k]:.4f} [{min(w[k] for w in walls[name]):.4f}-"
+            f"{max(w[k] for w in walls[name]):.4f}] s" for k in med)
+            + f"; traced pass: busy {prof['busy_ms']:.2f} ms, busy share "
+            f"{prof['busy_share']:.4f} of its walls "
+            f"{sum(prof['phase_walls_s'].values()):.4f} s; top device ms "
+            + "; ".join(f"{n} {ms:.2f}" for n, ms in prof["top_device_ms"]))
+
+    # one step, replayed and eager, at S = 16 and S = 1
+    eng = engines["S=16"]
+    seen = []
+    real_call = ES.LaneSteps.__call__
+
+    def spy(self, ss, om, retained=None):
+        if not seen:
+            seen.append((self, ss, om))
+        return real_call(self, ss, om, retained)
+    ES.LaneSteps.__call__ = spy
+    try:
+        eng.reset()
+        eng.count(fqb)
+    finally:
+        ES.LaneSteps.__call__ = real_call
+    steps, ss, om = seen[0]
+    for S in (ss.S, 1):
+        ssS = dataclasses.replace(ss, S=S)
+        omS = np.ascontiguousarray(om[:, :S])
+        om_dev = torch.from_numpy(omS).cuda()
+        rep_ms = device_ms(lambda: steps(ssS, omS))
+        # an eager step is ~100 launches: a few steps stay inside the
+        # card's launch queue while the spin kernel holds it
+        eager_ms = device_ms(lambda: ES.step(ssS, steps.lane, om_dev), 3)
+        host = []
+        for fn in (lambda: steps(ssS, omS),
+                   lambda: ES.step(ssS, steps.lane, om_dev)):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            host.append((time.monotonic() - t0) / 20 * 1e3)
+        print(f"steps: one {ss.keying} step of S={S} x {ss.bsz} reads "
+              f"(C={ss.C}, {ss.slots} slots a batch): replay device "
+              f"{rep_ms:.4f} ms, host {host[0]:.4f} ms/step; the same step "
+              f"eager: device {eager_ms:.4f} ms (its kernels back to back), "
+              f"host {host[1]:.4f} ms/step")
+    del engines, eng, steps
+
+    # the sketch at the stacked shape
+    rng = np.random.default_rng(SEED + 2)
+    B = ss.S * PARITY_B
+    codes, lengths = _batch(rng, B, READ_LEN, K, W)
+    lengths[:] = READ_LEN
+    c = torch.from_numpy(codes).cuda()
+    ln = torch.from_numpy(lengths).cuda()
+    got = MK.sketch(spec, c, ln, compact_to=C)
+    ref = MK.sketch_plain(spec, c, ln, compact_to=C)
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        fail(f"kernel != plain at the stacked shape {B} x {READ_LEN}")
+    err = float((got[0] - ref[0]).abs().max())
+    kw = dict(mode="minimizer", compact_to=C)
+    ms, plain_ms = time_kernel_plain(torch, MK, spec, c, ln, kw, 5, warm=1)
+    dev_ms = device_ms(MK.launcher(spec, c, ln, **kw))
+    shape = (B, READ_LEN, C, K, "minimizer")
+    print_times(f"sketch stacked B={B} L={READ_LEN} k={K} w={W} C={C}",
+                (ms, plain_ms, dev_ms), shape)
+    return err, ms, plain_ms, dev_ms, shape
 
 
 def phase_checkpoint(torch, MK, run, lane, tmp):
@@ -1331,9 +1500,10 @@ def lane_argv(lane, *flags):
 
 
 def phase_shards(torch, MK, run, lane, tmp, main_text, main_dumps,
-                 main_launches):
+                 n_batches):
     """Phase 15: the 800k lane with --shards 4 and --shards 2 through the
-    CLI on CUDA: stdout and both dumps byte-identical to phase 4's."""
+    CLI on CUDA: stdout and both dumps byte-identical to phase 4's, one
+    kernel launch per batch in each pass."""
     for n in (4, 2):
         dumps = [os.path.join(tmp, f"shards{n}.{x}")
                  for x in ("counts", "clusters")]
@@ -1341,9 +1511,9 @@ def phase_shards(torch, MK, run, lane, tmp, main_text, main_dumps,
             "--writeCounts", dumps[0], "--writeClusters", dumps[1]]
         out, err, eng, launches, wall = run_counted(torch, MK, run, argv)
         del eng
-        if launches != main_launches:
-            fail(f"--shards {n}: {launches} kernel launches, phase 4 made "
-                 f"{main_launches}")
+        if launches != 2 * n_batches:
+            fail(f"--shards {n}: {launches} kernel launches for "
+                 f"{n_batches} batches per pass")
         if masked(out) != masked(main_text):
             fail(f"--shards {n} stdout != phase 4's")
         for a, b in zip(dumps, main_dumps):
@@ -1509,6 +1679,7 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this smoke test needs a "
              "CUDA card")
     sys.path.insert(0, ROOT)
+    from hash10x_tpu_torch import engine_steps as ES
     from hash10x_tpu_torch.cli.main import run
     from hash10x_tpu_torch.engine import Engine, EngineConfig
     from hash10x_tpu_torch.hashspec import HashSpec
@@ -1547,7 +1718,8 @@ def main() -> int:
         write_fqb(lane, reads, bc_ids, N_CODES)
         print(f"lane: {N_READS} reads x {READ_LEN} bp, {N_CODES} barcodes "
               f"(built in {time.monotonic() - t0:.1f} s)")
-        eng, text, launches = phase_main(torch, MK, run, lane)
+        eng, text, launches, n_batches = phase_main(torch, MK, ES, run,
+                                                     lane)
         phase_c_ref(torch, st, run, eng, text, reads, bc_ids, tmp)
         phase_cuda_vs_cpu(run, tmp)
         wide_launches = phase_cuda_vs_cpu(run, tmp, WIDE_CLI_W, MK)
@@ -1563,17 +1735,24 @@ def main() -> int:
         phase_cuda_vs_cpu_legacy(run, tmp)
         phase_observe(torch, MK, run, tmp, reads, bc_ids, text)
         elapsed("phases 7-14")
-        phase_shards(torch, MK, run, lane, tmp, text, main_dumps, launches)
+        phase_shards(torch, MK, run, lane, tmp, text, main_dumps,
+                     n_batches)
         phase_lanes(torch, MK, run, lane, tmp, text, main_dumps)
         phase_hosts(lane, tmp, reads, bc_ids, text)
         phase_cuda_vs_cpu_shards(run, tmp)
         elapsed("phases 15-18")
         phase_reset(torch, MK, tmp)
         elapsed("phase 19")
+        stacked = phase_steps(torch, MK, ES, lane, text, main_dumps, tmp,
+                              compact_rows)
+        elapsed("phase 20")
 
     kernels = [kernel_entry(
         "seqhash_sketch", launches, max(max_err, fuzz_err), *main_times,
         (PARITY_B, READ_LEN, compact_rows, K, "minimizer"))]
+    err, *times, shape = stacked
+    kernels.append(kernel_entry("seqhash_sketch_stacked", launches, err,
+                                *times, shape))
     for mode in ("modimizer", "syncmer"):  # emission :279-280 and :281-292
         err, *times, shape = modes[mode]
         kernels.append(kernel_entry(f"seqhash_sketch_{mode}",

@@ -435,7 +435,7 @@ def bench_barcodes(n_reads: int, n_codes: int, device: torch.device,
                      "copy and the allocator's first growth; warm passes "
                      "reset() and rerun with the lane on the device"}
     if profile:
-        point["profile"] = _profiled_pass(device, pipeline)
+        point["profile"] = profiled_pass(device, pipeline)
     if c_exe is not None:
         c = run_c_full(c_exe, tmp, reads, bc_ids, cfg.min_friend_share)
         point.update(c)
@@ -445,7 +445,7 @@ def bench_barcodes(n_reads: int, n_codes: int, device: torch.device,
     return point
 
 
-def _profiled_pass(device: torch.device, pipeline) -> dict:
+def profiled_pass(device: torch.device, pipeline) -> dict:
     """One warm pass under torch.profiler: the device's busy time (the
     union of its kernel, copy and set intervals) over the pass's phase
     walls, and the five device operations with the most time."""

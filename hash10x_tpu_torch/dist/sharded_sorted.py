@@ -57,11 +57,6 @@ class LaneOverflowError(RuntimeError):
         self.auto_cap = int(auto_cap)
 
 
-# the JAX engine's emission_cap_factor: its per-read compaction width, which
-# sizes the send lanes (so --laneCapacity means the same in both packages)
-_EMISSION_CAP_FACTOR = 4
-
-
 def _pow2(n: int) -> int:
     return 1 << max(int(n - 1), 0).bit_length()
 
@@ -199,13 +194,16 @@ class SortedCountStep:
     canonical global rank (local rank + shard offset) and keys the pair as
     ``barcode * n_kmers + rank``; hop 2 routes the pair keys by their low
     bits to their dedup owner.  ``compact_to`` is the sketch kernel's
-    per-read compaction width (0 = dense rows)."""
+    per-read compaction width (0 = dense rows).  ``emission_cap_factor`` is
+    the JAX step's: its per-read compaction width (0 = full rows) sizes the
+    send lanes, so ``--laneCapacity`` means the same in both packages."""
 
     def __init__(self, spec: HashSpec, group: ShardGroup,
                  mode: str = "minimizer", modulus: int = 0,
                  syncmer_s: int = 0, lane_capacity: int = 0,
                  count_mode: str = "occurrences", compact_to: int = 0,
-                 pair_retained=None, pair_retained_sharded=None):
+                 pair_retained=None, pair_retained_sharded=None,
+                 emission_cap_factor: int = 4):
         if pair_retained is not None and pair_retained_sharded is not None:
             raise ValueError("pass pair_retained OR pair_retained_sharded")
         self.spec, self.group = spec, group
@@ -213,6 +211,7 @@ class SortedCountStep:
         self.lane_capacity = lane_capacity
         self.count_mode = count_mode
         self.compact_to = compact_to
+        self.emission_cap_factor = emission_cap_factor
         n = group.n_shards
         dev = group.device
         self.pair = pair_retained is not None \
@@ -254,10 +253,10 @@ class SortedCountStep:
 
     def flat_per_read(self, Pp: int) -> int:
         """Emission slots per read the JAX package's step sends from (its
-        compaction width at its default emission cap factor; the lane rule
-        is sized from it)."""
-        cf = _EMISSION_CAP_FACTOR
-        if self.mode == "minimizer" and self.spec.w > 1:
+        compaction width at ``emission_cap_factor``; the lane rule is sized
+        from it)."""
+        cf = self.emission_cap_factor
+        if cf and self.mode == "minimizer" and self.spec.w > 1:
             return min(Pp, cf * (2 * Pp // (self.spec.w + 1)) + cf)
         return Pp
 

@@ -18,13 +18,15 @@ reference's command language:
     Engine.save/load(path)   ~ --writeHash / --readHash (the JAX package's
                                                 .npz checkpoint layout)
 
-Everything runs as eager torch code on ``device``; the sketch of every batch
+Everything runs as torch code on ``device``; the sketch of every batch
 goes through ``kernels.minimizer.sketch`` (the CUDA kernel on a GPU) in any
 of its four modes.  Reads are grouped so one barcode never straddles a
 batch, which makes per-batch (hash, barcode) dedup exact: counts are
 *barcode counts* (``count_mode="barcodes"``) or raw emission counts
 (``count_mode="occurrences"``).  A barcode with more reads than a batch
-streams alone as a tagged group of batches.
+streams alone as a tagged group of batches.  The count and incidence passes
+send up to ``flush_batches`` batches per device step (``engine_steps``: one
+sketch launch over the stacked batches; one CUDA graph replay on a GPU).
 
 With ``n_shards > 1`` (``--shards``; ``--hosts`` spreads the shards over
 processes) count, filter, incidence, friend clustering, split and report run
@@ -36,8 +38,9 @@ Every gather is a collective, so in a multi-process run every process
 enters it (``host_materialize``).
 
 ``stats`` holds two host counters that read no device value: ``dispatches``
-(batch steps sent to the device in count and incidence) and ``flushes``
-(sort-merges of an append buffer into a table during them).
+(steps sent to the device in count and incidence: multi-batch steps on one
+device, batch steps on the sharded path) and ``flushes`` (sort-merges of an
+append buffer into a table during them).
 """
 
 from __future__ import annotations
@@ -58,13 +61,14 @@ from .core.encode import unpack_2bit_torch
 from .dist import sharded_inc as SI
 from .dist import sharded_sorted as DS
 from .dist.group import ShardGroup
+from .engine_steps import LaneSteps, StepSpec
 from .hashspec import HashSpec
 from .io.fqb import Fqb
 from .kernels import minimizer
 from .table import sorted_table as st
 from .table.incidence import (Incidence, combined_key_bits,
                               finalize_combined_pairs,
-                              incidence_from_sorted_pairs, pair_keys)
+                              incidence_from_sorted_pairs)
 from .utils.dense import device_unique
 from .utils.timing import StageTimer
 
@@ -115,6 +119,17 @@ class EngineConfig:
     cluster_label_blocks: int = 0    # >0: sharded clustering propagates
                                      # labels in barcode-aligned blocks of
                                      # about this many pairs
+    flush_batches: int = 16          # batches per device step, and the
+                                     # append buffer's capacity in batches
+                                     # (each flush is one sort of table +
+                                     # buffer, so flushes stay rare)
+    kernel_compact: bool = True      # the kernel compacts each read's
+                                     # emissions to C rows (_compact_rows);
+                                     # per-read overflow raises
+    emission_cap_factor: int = 4     # != 0: a minimizer batch buffers its
+                                     # expected emissions + 1/4 + 4096
+                                     # (_batch_slots); 0: the full width.
+                                     # Overflow is counted and raises
 
 
 def _counting_flushes(method):
@@ -131,10 +146,6 @@ def _counting_flushes(method):
 
 
 class Engine:
-    # append-buffer capacity in batches of pre-reduced keys: each flush is
-    # one sort of (table + buffer), so flushes stay rare
-    _FLUSH_BATCHES = 16
-
     def __init__(self, cfg: EngineConfig, device, log=sys.stderr):
         if cfg.mode not in minimizer.KERNEL_MODES:
             raise ValueError(f"unknown sketch mode {cfg.mode!r}")
@@ -145,7 +156,8 @@ class Engine:
         self._group: Optional[ShardGroup] = None
         self._global_n_barcodes = 0   # multi-process --readFQBShard lanes
         self._read_len = 0
-        self._lane_cache = None  # (fqb, batch size, device lane, spans)
+        # (fqb, batch size, device lane, spans, the lane's LaneSteps)
+        self._lane_cache = None
         self.timer = StageTimer(log, device=self.device)
         self.reset()
 
@@ -313,8 +325,8 @@ class Engine:
     def _lane(self, fqb: Fqb, bsz: int = 0):
         """The barcode-sorted lane on the device (packed words as int32,
         lengths, barcode ids, N mask or None) and its batch spans of ``bsz``
-        reads.  Cached for the lane last seen, so the incidence pass re-reads
-        nothing."""
+        reads.  Cached for the lane last seen, with its multi-batch steps
+        (``_steps``), so the incidence pass re-reads nothing."""
         bsz = bsz or self.cfg.batch_reads
         c = self._lane_cache
         if c is not None and c[0] is fqb and c[1] == bsz:
@@ -328,17 +340,25 @@ class Engine:
         lane = (put(fqb.packed, np.int32), put(fqb.lengths, np.int32),
                 put(fqb.barcode_ids.astype(np.int64), np.int64),
                 put(fqb.nmask, np.int32) if fqb.nmask is not None else None)
-        self._lane_cache = (fqb, bsz, lane, spans)
+        self._lane_cache = (fqb, bsz, lane, spans, LaneSteps(lane))
         return lane, spans
 
+    def _lane_steps(self, fqb: Fqb):
+        """The lane's batch spans and its steps (``engine_steps``)."""
+        _, spans = self._lane(fqb)
+        return spans, self._lane_cache[4]
+
     def _compact_rows(self, P: int) -> int:
-        """Kernel compaction width C (0 = dense rows): twice the expected
-        per-read emission count plus slack, rounded to 8 (minimizer:
-        2P/(w+1); modimizer: P/m; syncmer: P/(k-s+1)).  Per-read counts
-        concentrate hard around their mean; overflow is counted exactly and
-        raises.  kmer mode emits every position: nothing to compact."""
+        """Kernel compaction width C (0 = dense rows, and always with
+        ``kernel_compact`` off): twice the expected per-read emission count
+        plus slack, rounded to 8 (minimizer: 2P/(w+1); modimizer: P/m;
+        syncmer: P/(k-s+1)).  Per-read counts concentrate hard around their
+        mean; overflow is counted exactly and raises.  kmer mode emits every
+        position: nothing to compact."""
         cfg = self.cfg
         spec = cfg.spec
+        if not cfg.kernel_compact:
+            return 0
         if cfg.mode == "minimizer" and spec.w > 1:
             expected = 2 * P // (spec.w + 1) + 1
         elif cfg.mode == "modimizer":
@@ -350,53 +370,86 @@ class Engine:
         c = ((2 * expected + 16 + 7) // 8) * 8
         return c if c < P else 0
 
-    def _batch_slots(self, m: int, P: int, n_flat: int) -> int:
-        """Distinct keys one batch of ``m`` reads may buffer.  Minimizer
-        mode: the expected emission total plus a quarter and 4096 (per-read
-        counts are independent, so the total concentrates around its mean);
-        other modes: the full flat width.  Overflow is counted exactly and
-        raises."""
+    def _batch_slots(self, bsz: int, P: int, n_flat: int) -> int:
+        """Distinct keys one batch of ``bsz`` reads may buffer (the JAX
+        engine's ``_batch_slots``/``_dedup_slots``).  Minimizer mode with
+        ``emission_cap_factor`` != 0: the expected emission total plus a
+        quarter and 4096 (per-read counts are independent, so the total
+        concentrates around its mean); otherwise the full flat width.
+        Overflow is counted exactly and raises."""
         spec = self.cfg.spec
-        if self.cfg.mode != "minimizer" or spec.w <= 1:
+        if (not self.cfg.emission_cap_factor or self.cfg.mode != "minimizer"
+                or spec.w <= 1):
             return n_flat
-        expected = m * (2 * P // (spec.w + 1) + 1)
+        expected = bsz * (2 * P // (spec.w + 1) + 1)
         slots = expected + expected // 4 + 4096
         return min(n_flat, ((slots + 1023) // 1024) * 1024)
 
-    def _batches(self, fqb: Fqb):
-        """Yield the flat (hashes, barcodes) emissions of every batch, its
-        number of reads, its count of emissions past the kernel's
-        compaction width (a device scalar) and its group id."""
-        (packed, lengths, bcs, nmask), spans = self._lane(fqb)
-        cfg = self.cfg
-        C = self._compact_rows(self._read_len - cfg.spec.k + 1)
+    def _step_groups(self, spans, split_groups: bool):
+        """The spans as steps of at most ``flush_batches`` batches: (spans
+        [(a, b)], group id).  Consecutive spans form a run sent in groups of
+        up to S; with ``split_groups`` (the barcodes-mode count) each batch
+        of an oversized barcode is a step of its own that carries its group
+        id and ends the run, as in the JAX engine's count loop
+        (``hash10x_tpu/engine.py:1070-1121``)."""
+        S = max(1, self.cfg.flush_batches)
+        run = []
         for a, b, gid in spans:
-            ln = lengths[a:b]
-            codes = unpack_2bit_torch(packed[a:b], self._read_len,
-                                      None if nmask is None else nmask[a:b])
-            h, _, emit, over = minimizer.sketch(
-                cfg.spec, codes, ln, mode=cfg.mode, compact_to=C,
-                m=cfg.modulus, syncmer_s=cfg.syncmer_s)
-            keyed = torch.where(emit, h, INT64_MAX)
-            flat_bc = bcs[a:b, None].expand(-1, h.shape[1])
-            yield (keyed.reshape(-1), flat_bc.reshape(-1), b - a, over.sum(),
-                   gid)
+            if gid is None or not split_groups:
+                run.append((a, b))
+                continue
+            for i in range(0, len(run), S):
+                yield run[i:i + S], None
+            run = []
+            yield [(a, b)], gid
+        for i in range(0, len(run), S):
+            yield run[i:i + S], None
+
+    def _step(self, steps: LaneSteps, grp, keying: str, key_bits: int,
+              retained=None, **kw):
+        """One multi-batch step (``engine_steps``) over the spans ``grp``:
+        (keys, weights) of its real batches, ``slots`` entries each, and
+        its overflow (a device scalar).  S is ``len(grp)`` rounded up to a
+        power of two, so a pass makes at most log2(flush_batches) + 1 step
+        shapes; the pad batches are empty."""
+        cfg = self.cfg
+        S = 1 << (len(grp) - 1).bit_length()
+        om = np.zeros((2, S), np.int64)
+        om[:, :len(grp)] = np.array([(a, b - a) for a, b in grp]).T
+        ss = StepSpec(S, cfg.batch_reads, self._read_len, cfg.spec, cfg.mode,
+                      cfg.modulus, cfg.syncmer_s, *self._batch_shape(),
+                      keying, key_bits, **kw)
+        self.stats["dispatches"] += 1
+        keys, wts, over = steps(ss, om, retained)
+        n = len(grp) * ss.slots
+        return keys[:n], wts[:n], over
+
+    def _batch_shape(self):
+        """(C, slots) of this lane's batches: the kernel's compaction width
+        and the entries each batch buffers."""
+        P = self._read_len - self.cfg.spec.k + 1
+        C = self._compact_rows(P)
+        bsz = self.cfg.batch_reads
+        return C, self._batch_slots(bsz, P, bsz * (C or P))
 
     def _raise_overflow(self, what: str):
         raise RuntimeError(
-            f"{what}: a batch produced more distinct keys than its slots, or "
-            "a read more emissions than the kernel's compaction width")
+            f"{what}: overflow: a batch produced more distinct keys than its "
+            "slots, or a read more emissions than the kernel's compaction "
+            "width (emission_cap_factor=0 gives full-width slots, "
+            "kernel_compact=False dense rows)")
 
     # -- count pass --------------------------------------------------------------
 
     @_counting_flushes
     def count(self, fqb: Fqb, local_shard: bool = False) -> None:
-        """Count pass: every batch is sketched, pre-reduced and buffered into
-        the count table.  Barcodes mode keys on (hash, distinct-barcode
-        count) pairs; an oversized barcode's batches dedup through a side
-        table, so each of its distinct hashes enters once.  Occurrences mode
-        counts every emission, reads without a barcode included, and its
-        groups fold into the normal stream.
+        """Count pass: steps of up to ``flush_batches`` batches sketch,
+        pre-reduce and buffer into the count table.  Barcodes mode keys on
+        (hash, distinct-barcode count) pairs; an oversized barcode's batches
+        go one per step and dedup through a side table, so each of its
+        distinct hashes enters once.  Occurrences mode counts every emission,
+        reads without a barcode included, and its groups fold into the
+        normal stream.  Flushes run between steps.
 
         ``local_shard`` (multi-process runs only): ``fqb`` is this process's
         barcode-disjoint shard of the lane, not the whole lane."""
@@ -405,37 +458,32 @@ class Engine:
         if local_shard:
             raise ValueError("local_shard input requires --shards over a "
                              "multi-process group")
+        cfg = self.cfg
         self._read_len = fqb.read_len
-        P = self._read_len - self.cfg.spec.k + 1
-        C = self._compact_rows(P)
-        bsz = self.cfg.batch_reads
-        cap = 1 << self.cfg.table_bits
-        full = self._batch_slots(bsz, P, bsz * (C or P))
-        buf_cap = max(cap, self._FLUSH_BATCHES * full)
+        slots = self._batch_shape()[1]
+        cap = 1 << cfg.table_bits
+        buf_cap = max(cap, max(1, cfg.flush_batches) * slots)
         if self.table is None:
             self.table = st.make_sorted_table(cap, buf_cap, self.device)
         self.table = st.grow_buf(self.table, buf_cap)
-        occurrences = self.cfg.count_mode == "occurrences"
+        occurrences = cfg.count_mode == "occurrences"
+        keying = "hashes" if occurrences else "pairs"
         overflow = torch.zeros((), dtype=torch.int64, device=self.device)
         group, gtab = None, None
-        for flat_h, flat_bc, m, sketch_over, gid in self._batches(fqb):
-            self.stats["dispatches"] += 1
-            if group is not None and gid != group:
+        spans, steps = self._lane_steps(fqb)
+        for grp, gid in self._step_groups(spans, not occurrences):
+            if gtab is not None and gid != group:
                 self._finish_group(gtab)
                 group, gtab = None, None
-            slots = self._batch_slots(m, P, flat_h.shape[0])
-            if occurrences:
-                keys, wts, over = st.dedup_weighted(flat_h, slots)
-            else:
-                keys, wts, over = st.dedup_pairs_weighted(flat_h, flat_bc,
-                                                          slots)
-            overflow += sketch_over + over
-            if gid is None or occurrences:
+            # hashes are 2k bits (hashspec.py)
+            keys, wts, over = self._step(steps, grp, keying, 2 * cfg.spec.k)
+            overflow += over
+            if gid is None:
                 self.table = st.append_pairs(self.table, keys, wts)
                 continue
             if gtab is None:
                 group = gid
-                gtab = st.make_sorted_table(2 * full, 2 * full, self.device)
+                gtab = st.make_sorted_table(2 * slots, 2 * slots, self.device)
             gtab = st.append_pairs(gtab, keys, wts)
         if gtab is not None:
             self._finish_group(gtab)
@@ -575,11 +623,11 @@ class Engine:
 
     @_counting_flushes
     def incidence(self, fqb: Fqb, local_shard: bool = False) -> None:
-        """Second pass: the deduplicated k-mer x barcode incidence.  Lanes
-        whose (barcode, hash) pair fits one int63 key buffer combined keys
-        and rank them once at the end; others join each batch against the
-        retained set.  ``n_shards > 1``: the sharded pass
-        (``_incidence_sharded``)."""
+        """Second pass: the deduplicated k-mer x barcode incidence, in steps
+        of up to ``flush_batches`` batches.  Lanes whose (barcode, hash)
+        pair fits one int63 key buffer combined keys and rank them once at
+        the end; others join each batch against the retained set.
+        ``n_shards > 1``: the sharded pass (``_incidence_sharded``)."""
         if self._retained is None and self._ret_sh is None:
             self.filter()
         if self.cfg.n_shards > 1:
@@ -587,28 +635,29 @@ class Engine:
         if local_shard:
             raise ValueError("local_shard input requires --shards over a "
                              "multi-process group")
-        self._read_len = fqb.read_len
+        cfg = self.cfg
         retained = self.retained_hashes
         n_kmers = retained.shape[0]
-        hb = combined_key_bits(self.cfg.spec.k, fqb.n_barcodes)
-        P = self._read_len - self.cfg.spec.k + 1
-        bsz = self.cfg.batch_reads
-        full = self._batch_slots(bsz, P, bsz * (self._compact_rows(P) or P))
-        cap = 1 << self.cfg.table_bits
-        pt = st.make_sorted_table(cap, max(cap, self._FLUSH_BATCHES * full),
-                                  self.device)
+        n_codes = fqb.n_barcodes
+        hb = combined_key_bits(cfg.spec.k, n_codes)
+        if hb:   # keys (barcode << hb) | hash below n_codes << hb
+            keying = dict(keying="combined", hb=hb,
+                          key_bits=hb + max(n_codes - 1, 0).bit_length())
+        else:    # keys barcode * n_kmers + rank below n_codes * n_kmers
+            keying = dict(keying="join", retained=retained, n_kmers=n_kmers,
+                          key_bits=(max(n_codes * n_kmers, 1) - 1)
+                          .bit_length())
+        self._read_len = fqb.read_len
+        slots = self._batch_shape()[1]
+        cap = 1 << cfg.table_bits
+        pt = st.make_sorted_table(
+            cap, max(cap, max(1, cfg.flush_batches) * slots), self.device)
         overflow = torch.zeros((), dtype=torch.int64, device=self.device)
+        spans, steps = self._lane_steps(fqb)
         # group tags do not matter here: the pair table dedups globally
-        for flat_h, flat_bc, m, sketch_over, _ in self._batches(fqb):
-            self.stats["dispatches"] += 1
-            if hb:
-                ok = (flat_h != INT64_MAX) & (flat_bc >= 0)
-                raw = torch.where(ok, (flat_bc << hb) | flat_h, INT64_MAX)
-            else:
-                raw = pair_keys(retained, flat_h, flat_bc, n_kmers)
-            slots = self._batch_slots(m, P, raw.shape[0])
-            keys, wts, over = st.dedup_weighted(raw, slots)
-            overflow += sketch_over + over
+        for grp, _ in self._step_groups(spans, False):
+            keys, wts, over = self._step(steps, grp, **keying)
+            overflow += over
             pt = st.append_pairs(pt, keys, wts)
         if int(overflow):
             self._raise_overflow("incidence")
@@ -845,15 +894,15 @@ class Engine:
             syncmer_s=cfg.syncmer_s, lane_capacity=cfg.lane_capacity,
             count_mode=count_mode,
             compact_to=self._compact_rows(self._read_len - cfg.spec.k + 1),
-            **retained)
+            emission_cap_factor=cfg.emission_cap_factor, **retained)
 
     def _sharded_table_for(self, g: ShardGroup, step, routing="range"):
-        """A sharded table whose buffers hold ``_FLUSH_BATCHES`` batches."""
+        """A sharded table whose buffers hold ``flush_batches`` batches."""
         cfg = self.cfg
         cap = max((1 << cfg.table_bits) // cfg.n_shards, 1 << 14)
         width = step.recv_width(cfg.batch_reads, self._read_len)
-        buf = 1 << max(int(2 * self._FLUSH_BATCHES * width - 1).bit_length(),
-                       14)
+        buf = 1 << max(int(2 * max(1, cfg.flush_batches) * width - 1)
+                       .bit_length(), 14)
         return DS.ShardedSortedTable(g, cap, buf, spec=cfg.spec,
                                      routing=routing)
 

@@ -1,0 +1,175 @@
+"""Multi-batch device steps of the count and incidence passes: the port of
+the JAX engine's ``_fused_count_scan`` and ``_fused_pair_scan``
+(``hash10x_tpu/engine.py:922-1011``, ``:1742-1841``).
+
+A step covers S batches of ``bsz`` reads of the device lane
+(``Engine._lane``), given as S (offset, m) pairs.  It gathers the S row
+windows (rows past m get length 0 and barcode -1, so a pad batch emits only
+``INT64_MAX``), unpacks them, makes one ``kernels.minimizer.sketch`` call on
+the stacked (S * bsz, L) codes, keys the emissions and reduces each batch
+on its own to ``slots`` entries (``sorted_table.dedup_*_segmented``).  It
+returns ``(keys (S * slots,), weights (S * slots,) int32, overflow)``:
+batch j's entries in slots ``[j * slots, (j + 1) * slots)``, and overflow a
+device scalar that counts the emissions past the kernel's compaction width
+and the distinct keys past each batch's slots.  The caller appends the real
+batches' entries to a table's buffer; the host reads nothing back.
+
+Keyings (``StepSpec.keying``):
+
+* ``"hashes"``: the count pass in occurrences mode, the emitted hashes;
+* ``"pairs"``: the count pass in barcodes mode, (hash, barcode) pairs, each
+  hash weighted by its distinct barcodes in the batch;
+* ``"combined"``: the incidence pass, ``(barcode << hb) | hash``;
+* ``"join"``: the incidence pass, ``barcode * n_kmers + rank`` of the hash
+  in the retained set (``table.incidence.pair_keys``).
+
+On CUDA each ``StepSpec`` is captured once into a CUDA graph, after one
+warm-up call on a side stream, and each step is one replay of it: the host
+copies the (offset, m) pairs into the graph's static input and replays.
+The graph holds the lane's and, for ``"join"``, the retained set's
+addresses, so ``LaneSteps`` lives with the lane and captures a join step
+again when the retained set changes.  Its outputs are static tensors that
+the next replay overwrites; the caller copies them first, in stream order.
+A capture or a replay that fails raises: a step never falls back to eager
+work on the card.  On the CPU the same step runs eagerly.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from . import INT64_MAX
+from .core.encode import unpack_2bit_torch
+from .hashspec import HashSpec
+from .kernels import minimizer
+from .table import sorted_table as st
+from .table.incidence import pair_keys
+
+__all__ = ["StepSpec", "LaneSteps", "step", "REPLAYS"]
+
+REPLAYS = 0   # CUDA graph replays of steps
+
+
+@dataclass(frozen=True)
+class StepSpec:
+    """Everything a step computes from besides its lane and (offset, m)
+    pairs; the key of its CUDA graph."""
+    S: int              # batches per step
+    bsz: int            # reads per batch
+    read_len: int
+    spec: HashSpec
+    mode: str
+    modulus: int
+    syncmer_s: int
+    C: int              # the kernel's compaction width (0 = dense rows)
+    slots: int          # entries per batch
+    keying: str         # hashes | pairs | combined | join
+    key_bits: int       # real keys lie below 2**key_bits
+    hb: int = 0         # "combined": the barcode's shift
+    n_kmers: int = 0    # "join": the retained set's size
+
+
+def _gather(lane, om: torch.Tensor, bsz: int, read_len: int):
+    """The S row windows ``om[0] + [0, bsz)`` of the lane, rows past
+    ``om[1]`` emptied: (codes (S * bsz, L) uint8, lengths int32, barcodes
+    int64)."""
+    packed, lengths, bcs, nmask = lane
+    r = torch.arange(bsz, device=om.device)
+    valid = (r < om[1, :, None]).reshape(-1)
+    rows = (om[0, :, None] + r).reshape(-1).clamp(max=lengths.shape[0] - 1)
+    ln = torch.where(valid, lengths.index_select(0, rows), 0)
+    bc = torch.where(valid, bcs.index_select(0, rows), -1)
+    nm = None
+    if nmask is not None:
+        nm = torch.where(valid[:, None], nmask.index_select(0, rows), 0)
+    return (unpack_2bit_torch(packed.index_select(0, rows), read_len, nm),
+            ln, bc)
+
+
+def step(ss: StepSpec, lane, om: torch.Tensor, retained=None):
+    """One step over the (2, S) int64 offsets and m's ``om`` on the lane's
+    device: ``(keys, weights, overflow)`` (see the module docstring)."""
+    codes, ln, bc = _gather(lane, om, ss.bsz, ss.read_len)
+    h, _, emit, over = minimizer.sketch(
+        ss.spec, codes, ln, mode=ss.mode, compact_to=ss.C, m=ss.modulus,
+        syncmer_s=ss.syncmer_s)
+    keyed = torch.where(emit, h, INT64_MAX)
+    flat_bc = bc[:, None].expand(-1, h.shape[1])
+    if ss.keying == "pairs":
+        keys, wts, o = st.dedup_pairs_weighted_segmented(
+            keyed.reshape(ss.S, -1), flat_bc.reshape(ss.S, -1), ss.slots,
+            ss.key_bits)
+    else:
+        if ss.keying == "combined":
+            ok = (keyed != INT64_MAX) & (flat_bc >= 0)
+            keyed = torch.where(ok, (flat_bc << ss.hb) | keyed, INT64_MAX)
+        elif ss.keying == "join":
+            keyed = pair_keys(retained, keyed.reshape(-1),
+                              flat_bc.reshape(-1), ss.n_kmers)
+        keys, wts, o = st.dedup_weighted_segmented(
+            keyed.reshape(ss.S, -1), ss.slots, ss.key_bits)
+    return keys, wts, over.sum(dtype=torch.int64) + o
+
+
+class LaneSteps:
+    """The steps of one device lane: on CUDA a captured graph per
+    ``StepSpec`` (all in one memory pool: they replay one at a time, in
+    stream order), on the CPU the eager step."""
+
+    def __init__(self, lane):
+        self.lane = lane
+        self.device = lane[1].device
+        self._graphs = {}
+        self._pool = None
+
+    def __call__(self, ss: StepSpec, om: np.ndarray, retained=None):
+        """Run the step ``ss`` on the (2, S) int64 offsets and m's ``om``."""
+        if self.device.type != "cuda":
+            return step(ss, self.lane, torch.from_numpy(om).to(self.device),
+                        retained)
+        g = self._graphs.get(ss)
+        if g is None or g.retained is not retained:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            g = self._graphs[ss] = _StepGraph(ss, self.lane, retained,
+                                              self._pool)
+        return g.replay(om)
+
+
+class _StepGraph:
+    """One step captured into a CUDA graph: a static (2, S) input and the
+    static outputs of its one capture."""
+
+    def __init__(self, ss: StepSpec, lane, retained, pool):
+        dev = lane[1].device
+        minimizer.build()   # load the kernel library outside the capture
+        self.retained = retained
+        self.om = torch.zeros((2, ss.S), dtype=torch.int64, device=dev)
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            # warm-up (all batches empty): lazy initialisation and the
+            # kernel module's load happen here, not under capture
+            step(ss, lane, self.om, retained)
+            torch.cuda.synchronize(dev)
+            self.graph = torch.cuda.CUDAGraph()
+            n0 = minimizer.CAPTURED
+            self.graph.capture_begin(pool=pool)
+            try:
+                self.out = step(ss, lane, self.om, retained)
+            finally:
+                self.graph.capture_end()
+        cur.wait_stream(side)
+        self.launches = minimizer.CAPTURED - n0
+
+    def replay(self, om: np.ndarray):
+        global REPLAYS
+        self.om.copy_(torch.from_numpy(om), non_blocking=True)
+        self.graph.replay()
+        REPLAYS += 1
+        minimizer.count_replay(self.launches)
+        return self.out

@@ -14,7 +14,10 @@ coalesced stores (compacted rows ranked with a warp ballot).
 it never gives way to the plain version there.  ``sketch_plain`` is the same
 function in plain torch (``core/seqhash.py`` plus an in-order compaction)
 and serves CPU tensors.  ``LAUNCHES`` counts kernel calls and
-``PLAIN_CALLS`` counts plain-version calls made by ``sketch``.
+``PLAIN_CALLS`` counts plain-version calls made by ``sketch``.  A call made
+while a CUDA graph is being captured launches nothing: it counts in
+``CAPTURED``, and each replay of the graph adds the launches it recorded to
+``LAUNCHES`` (``count_replay``).
 ``sketch_minimizer``, ``sketch_minimizer_compact`` and ``supported`` keep
 the JAX module's entry points; ``sketch_bound`` is the least time an H100
 could take for one call, the yardstick of ``chip_smoke.py`` and the bench.
@@ -47,11 +50,13 @@ from ..hashspec import HashSpec
 
 __all__ = ["sketch", "sketch_plain", "sketch_minimizer",
            "sketch_minimizer_compact", "supported", "sketch_bound", "launcher",
-           "build", "LAUNCHES", "PLAIN_CALLS", "KERNEL_MODES",
+           "build", "count_replay", "LAUNCHES", "PLAIN_CALLS", "CAPTURED",
+           "KERNEL_MODES",
            "HBM_BYTES_PER_S", "INT32_OPS_PER_S", "OPS_PER_HASH"]
 
 LAUNCHES = 0
 PLAIN_CALLS = 0
+CAPTURED = 0
 
 KERNEL_MODES = {"kmer": 0, "minimizer": 1, "modimizer": 2, "syncmer": 3}
 
@@ -212,6 +217,13 @@ def launcher(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor,
                            syncmer_s)
 
 
+def count_replay(n: int) -> None:
+    """Count the ``n`` kernel launches that one replay of a CUDA graph makes
+    (the launches its capture added to ``CAPTURED``)."""
+    global LAUNCHES
+    LAUNCHES += n
+
+
 def sketch(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor,
            mode: str = "minimizer", compact_to: int = 0, m: int = 0,
            syncmer_s: int = 0):
@@ -257,11 +269,13 @@ def sketch(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor,
 
 def _launch(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor, out,
             mode: str, compact_to: int, m: int, syncmer_s: int) -> None:
-    """One kernel call (one count in ``LAUNCHES``; the wide route's three
-    passes are one call) on :func:`sketch`'s checked, contiguous CUDA inputs
-    into ``out`` = (hashes (B, R) int64, flags (B, R) uint8 with bit 0
-    emitted and bit 1 forward, overflow (B,) int32)."""
-    global LAUNCHES
+    """One kernel call (one count in ``LAUNCHES``, or in ``CAPTURED`` while
+    a CUDA graph is captured; the wide route's three passes are one call)
+    on :func:`sketch`'s checked, contiguous CUDA inputs into ``out`` =
+    (hashes (B, R) int64, flags (B, R) uint8 with bit 0 emitted and bit 1
+    forward, overflow (B,) int32).  It launches on the current stream and
+    makes no other stream call, so a CUDA graph can record it."""
+    global LAUNCHES, CAPTURED
     modulus = (m or spec.w) if mode == "modimizer" else 0
     if mode == "modimizer" and not 1 <= modulus < (1 << 63):
         raise ValueError(f"modimizer modulus must be in [1, 2^63), got {modulus}")
@@ -287,4 +301,7 @@ def _launch(spec: HashSpec, codes: torch.Tensor, lengths: torch.Tensor, out,
         out_h.data_ptr(), out_f.data_ptr(), over.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"sketch kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED += 1
+    else:
+        LAUNCHES += 1

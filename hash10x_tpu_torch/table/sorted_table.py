@@ -4,8 +4,9 @@
 * state: ``hashes (C,) int64`` ascending with ``INT64_MAX`` pads and
   ``counts (C,) int32``, plus a weighted append buffer ``buf``/``bufw`` of
   (key, multiplicity) entries.  Callers pre-reduce each batch on the device
-  (``dedup_weighted`` / ``dedup_pairs_weighted``) and append the distinct
-  keys only.
+  (``dedup_weighted`` / ``dedup_pairs_weighted``; their ``_segmented``
+  forms reduce S stacked batches at once, each on its own) and append the
+  distinct keys only.
 * ``append``/``append_pairs`` write the buffer; when it would overflow, the
   table flushes first.
 * ``flush_grow`` sorts (table ++ buffer), sums the weights of equal keys and
@@ -33,7 +34,9 @@ from .. import INT64_MAX
 
 __all__ = ["SortedTable", "make_sorted_table", "append", "append_pairs",
            "flush_grow", "grow_buf", "merge_counts", "segment_sum_sorted",
-           "dedup_weighted", "dedup_pairs_weighted", "count_histogram",
+           "dedup_weighted", "dedup_pairs_weighted",
+           "dedup_weighted_segmented", "dedup_pairs_weighted_segmented",
+           "count_histogram",
            "compact", "prune", "prune_rescue", "lookup_ids", "FLUSHES"]
 
 FLUSHES = 0
@@ -142,32 +145,59 @@ def append(t: SortedTable, emissions: torch.Tensor) -> SortedTable:
 
 
 def _take_slots(keys: torch.Tensor, weights: torch.Tensor, keep: torch.Tensor,
-                slots: int):
-    """Stable compaction of the kept entries into ``slots`` slots, pads
-    after, and the exact number of kept entries that did not fit (a device
-    scalar, so the caller's loop never syncs)."""
-    pos = torch.cumsum(keep.to(torch.int64), 0) - 1
-    dst = torch.where(keep & (pos < slots), pos, slots)  # slot `slots` is dropped
-    out_k = torch.full((slots + 1,), INT64_MAX, dtype=torch.int64,
+                slots: int, row=None, S: int = 1):
+    """Stable compaction of the kept entries into ``slots`` slots per row
+    (``row``: each entry's row of S, non-decreasing, values >= S only past
+    the last row; None for one row), pads after, and the exact number of
+    kept entries that did not fit (a device scalar, so the caller's loop
+    never syncs)."""
+    c = torch.cumsum(keep.to(torch.int64), 0)
+    pos = c - 1
+    n_out = S * slots
+    if row is None:
+        dst = torch.where(keep & (pos < slots), pos, n_out)
+        overflow = torch.clamp(keep.sum() - slots, min=0)
+    else:
+        # kept entries before each row's first entry (rows are contiguous:
+        # no atomics into S counters)
+        first = torch.searchsorted(row, torch.arange(S + 1,
+                                                     device=row.device))
+        before = torch.cat([c.new_zeros(1), c])[first]
+        row = torch.where(keep, row, 0)
+        pos = pos - before[row]
+        dst = torch.where(keep & (pos < slots), row * slots + pos, n_out)
+        overflow = torch.clamp(before[1:] - before[:-1] - slots, min=0).sum()
+    # slot n_out takes what is dropped
+    out_k = torch.full((n_out + 1,), INT64_MAX, dtype=torch.int64,
                        device=keys.device)
     out_k.scatter_(0, dst, torch.where(keep, keys, INT64_MAX))
-    out_w = torch.zeros(slots + 1, dtype=torch.int32, device=keys.device)
+    out_w = torch.zeros(n_out + 1, dtype=torch.int32, device=keys.device)
     out_w.scatter_(0, dst, torch.where(keep, weights.to(torch.int32), 0))
-    overflow = torch.clamp(keep.sum() - slots, min=0)
-    return out_k[:slots], out_w[:slots], overflow
+    return out_k[:n_out], out_w[:n_out], overflow
 
 
-def _run_totals(s: torch.Tensor, counted: torch.Tensor):
-    """For ascending ``s``: which entries end a run of equal keys, and the
-    number of ``counted`` entries in the run each such entry ends.
+def _changes(*cols) -> torch.Tensor:
+    """(n - 1,) bool: entry i + 1 differs from entry i in any column (None
+    columns skipped)."""
+    diff = None
+    for c in cols:
+        if c is not None:
+            d = c[1:] != c[:-1]
+            diff = d if diff is None else diff | d
+    return diff
+
+
+def _run_totals(diff: torch.Tensor, counted: torch.Tensor):
+    """For sorted entries whose runs of equal keys start where ``diff`` (see
+    :func:`_changes`) is set: which entries end a run, and the number of
+    ``counted`` entries in the run each such entry ends.
 
     Each run's starting prefix sum is scattered to its run id and gathered
     back.  The JAX package's running max (``cummax``) is an indexed scan on
     CUDA that took half of the device time of the 800k-read barcodes lane
     on an H100 80GB HBM3 at 700 W."""
-    n = s.shape[0]
-    diff = s[1:] != s[:-1]
-    edge = s.new_ones(1, dtype=torch.bool)
+    n = counted.shape[0]
+    edge = diff.new_ones(1)
     is_first = torch.cat([edge, diff])
     counted = counted.to(torch.int64)
     c = torch.cumsum(counted, 0)
@@ -177,14 +207,57 @@ def _run_totals(s: torch.Tensor, counted: torch.Tensor):
     return torch.cat([diff, edge]), c - start[run_id]
 
 
+def _fold_rows(flat: torch.Tensor, S: int, key_bits: int):
+    """The (row, key) sort key of S stacked rows of real keys below
+    ``2**key_bits`` as one int64, ``(row << key_bits) | key`` (pads stay
+    ``INT64_MAX``), or None where the row index does not fit above the key
+    bits (``key_bits + ceil(log2 S) > 62``): then one more stable sort, by
+    row, orders the rows (:func:`_by_row`)."""
+    if key_bits + (S - 1).bit_length() > 62:
+        return None
+    rows = torch.arange(S, device=flat.device)[:, None].expand(
+        S, flat.shape[0] // S).reshape(-1)
+    return torch.where(flat != INT64_MAX, (rows << key_bits) | flat,
+                       INT64_MAX)
+
+
+def _by_row(order: torch.Tensor, N: int):
+    """The permutation ``order`` of stacked rows of N entries stably
+    re-sorted by row, and the row of each entry it lists."""
+    order = order[torch.argsort(order // N, stable=True)]
+    return order, order // N
+
+
 def dedup_weighted(keyed: torch.Tensor, slots: int):
     """Reduce raw emissions ((N,) int64, ``INT64_MAX`` pads) to
     ``(keys (slots,), weights (slots,) int32, overflow)``: sort, sum equal
     keys, compact.  ``overflow`` counts distinct keys beyond ``slots``."""
-    s = torch.sort(keyed).values
+    return dedup_weighted_segmented(keyed.reshape(1, -1), slots)
+
+
+def dedup_weighted_segmented(keyed: torch.Tensor, slots: int,
+                             key_bits: int = 63):
+    """:func:`dedup_weighted` of each row of ``keyed (S, N)`` on its own, as
+    S separate calls would give it: ``(keys (S*slots,), weights, overflow)``
+    with row j's entries in slots ``[j*slots, (j+1)*slots)`` and
+    ``overflow`` the sum over rows of their distinct keys past ``slots``.
+    Real keys lie below ``2**key_bits`` (the sort folds the row index in
+    where it fits, see :func:`_fold_rows`).  No host sync and no shape that
+    depends on the data: a CUDA graph can hold it."""
+    S, N = keyed.shape
+    flat = keyed.reshape(-1)
+    folded = _fold_rows(flat, S, key_bits) if S > 1 else flat
+    row = None
+    if folded is None:
+        order, row = _by_row(torch.argsort(flat, stable=True), N)
+        s = flat[order]
+    else:
+        s = torch.sort(folded).values
     valid = s != INT64_MAX
-    is_last, run = _run_totals(s, valid)
-    return _take_slots(s, run, is_last & valid, slots)
+    if S > 1 and row is None:
+        row, s = s >> key_bits, s & ((1 << key_bits) - 1)
+    is_last, run = _run_totals(_changes(s, row), valid)
+    return _take_slots(s, run, is_last & valid, slots, row, S)
 
 
 def dedup_pairs_weighted(flat_h: torch.Tensor, flat_bc: torch.Tensor,
@@ -194,16 +267,34 @@ def dedup_pairs_weighted(flat_h: torch.Tensor, flat_bc: torch.Tensor,
     in this batch (exact across batches when batches are barcode-aligned).
     Rows with barcode < 0 are dropped.  Returns ``(keys (slots,), weights
     (slots,) int32, overflow)``."""
-    # lexicographic (hash, barcode) order from two stable single-key sorts
-    o1 = torch.argsort(flat_bc, stable=True)
-    o2 = torch.argsort(flat_h[o1], stable=True)
-    order = o1[o2]
-    hs, bs = flat_h[order], flat_bc[order]
-    first = torch.cat([hs.new_ones(1, dtype=torch.bool),
-                       (hs[1:] != hs[:-1]) | (bs[1:] != bs[:-1])])
+    return dedup_pairs_weighted_segmented(flat_h.reshape(1, -1),
+                                          flat_bc.reshape(1, -1), slots)
+
+
+def dedup_pairs_weighted_segmented(flat_h: torch.Tensor, flat_bc: torch.Tensor,
+                                   slots: int, key_bits: int = 63):
+    """:func:`dedup_pairs_weighted` of each row of ``flat_h``/``flat_bc``
+    ``(S, N)`` on its own, laid out as :func:`dedup_weighted_segmented`
+    lays out its rows (hashes below ``2**key_bits``)."""
+    S, N = flat_h.shape
+    h, bc = flat_h.reshape(-1), flat_bc.reshape(-1)
+    folded = _fold_rows(h, S, key_bits) if S > 1 else h
+    # lexicographic (row, hash, barcode) order from stable single-key sorts
+    order = torch.argsort(bc, stable=True)
+    row = None
+    if folded is None:
+        order, row = _by_row(order[torch.argsort(h[order], stable=True)], N)
+    else:
+        h = folded
+        order = order[torch.argsort(h[order], stable=True)]
+    hs, bs = h[order], bc[order]
     real = hs != INT64_MAX
-    is_last, run = _run_totals(hs, first & (bs >= 0) & real)
-    return _take_slots(hs, run, is_last & real & (run > 0), slots)
+    if row is None and S > 1:
+        row, hs = hs >> key_bits, hs & ((1 << key_bits) - 1)
+    hdiff = _changes(hs, row)
+    first = torch.cat([hdiff.new_ones(1), hdiff | (bs[1:] != bs[:-1])])
+    is_last, run = _run_totals(hdiff, first & (bs >= 0) & real)
+    return _take_slots(hs, run, is_last & real & (run > 0), slots, row, S)
 
 
 def count_histogram(hashes: torch.Tensor, counts: torch.Tensor,

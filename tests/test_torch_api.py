@@ -2,9 +2,10 @@
 ``build_incidence``, ``retained_lookup``, ``Incidence.kmers_of``/``codes_of``,
 ``friend_pairs``, ``Engine.reset``, ``Engine.clusters``, and the sketch
 entry points ``sketch_minimizer``, ``sketch_minimizer_compact`` and
-``supported``.  ``Engine.stats`` is held against the port's own batch and
-flush counts (its numbers differ from the JAX engine's by design: the port
-sends one step per batch).  Every comparison is exact (tolerance: none)."""
+``supported``.  ``Engine.stats`` is held against the port's own step and
+flush counts (one dispatch per step of up to ``flush_batches`` batches, as
+the JAX engine counts its scan-fused dispatches; the sharded path sends one
+step per batch).  Every comparison is exact (tolerance: none)."""
 
 import io
 import re
@@ -223,22 +224,30 @@ class _FlushSpy:
         monkeypatch.setattr(st, "flush_grow", spy)
 
 
-@pytest.mark.parametrize("n_shards,batch", [(1, 512), (1, 64), (2, 256)])
-def test_stats_count_batches_and_flushes(lane, monkeypatch, n_shards, batch):
+@pytest.mark.parametrize("n_shards,batch,flush_batches", [
+    (1, 512, 16), (1, 64, 16), (1, 64, 3), (1, 64, 1), (2, 256, 16)])
+def test_stats_count_batches_and_flushes(lane, monkeypatch, n_shards, batch,
+                                         flush_batches):
     _, cfg = _cfgs(n_shards=n_shards)
     cfg.batch_reads = batch
+    cfg.flush_batches = flush_batches
     fqb = FB.load_fqb(lane)
     eng = Engine(cfg, "cpu", log=None)
-    n_batches = len(eng._spans(fqb)[1])
+    spans = eng._spans(fqb)[1]
+    assert all(gid is None for *_, gid in spans)   # no oversized barcode
+    n_batches = len(spans)
+    # one device step per flush_batches batches; one per batch if sharded
+    n_steps = -(-n_batches // flush_batches) if n_shards == 1 else n_batches
+    assert n_steps < n_batches or flush_batches == 1 or n_shards > 1
     spy = _FlushSpy(monkeypatch)
     eng.count(fqb)
-    assert eng.stats == {"dispatches": n_batches, "flushes": spy.n}
+    assert eng.stats == {"dispatches": n_steps, "flushes": spy.n}
     assert spy.n >= 1
     eng.stats = {"dispatches": 0, "flushes": 0}
     spy.n = 0
     eng.filter()
     eng.incidence(fqb)
-    assert eng.stats == {"dispatches": n_batches, "flushes": spy.n}
+    assert eng.stats == {"dispatches": n_steps, "flushes": spy.n}
     if batch == 64:   # 16 batches fill the append buffer: more merges
         assert spy.n > 1
     eng.reset()

@@ -146,15 +146,16 @@ def test_lane_overflow_drops_equal_jax(sim_lane):
     assert int(gc.sum()) + drops == int(full.sum())
 
 
-def test_step_sizing_equals_jax_rules():
+@pytest.mark.parametrize("cf", [4, 0])   # emission_cap_factor (0: full rows)
+def test_step_sizing_equals_jax_rules(cf):
     """lane_cap / slots_recv / auto_lane_cap follow the JAX package's rules
     (so --laneCapacity means the same in both)."""
     spec = HashSpec(k=21, w=11, seed=17)
     for n, lane in ((1, 0), (4, 0), (8, 0), (4, 4096)):
         step = DS.SortedCountStep(spec, ShardGroup(n, "cpu"),
-                                  lane_capacity=lane)
+                                  lane_capacity=lane, emission_cap_factor=cf)
         per = 4096 // n
-        E = per * min(130, 4 * (2 * 130 // 12) + 4)
+        E = per * (min(130, cf * (2 * 130 // 12) + cf) if cf else 130)
         want = lane or (max(E, 8) if n == 1
                         else max(min(E, 2 * E // n + 4096), 8))
         assert step.auto_lane_cap(4096, 150) == want
