@@ -73,9 +73,11 @@ Phases (any failure exits non-zero):
                 walls of the native loader and the numpy parser
  15. shards   - the 800k lane through the CLI on CUDA with --shards 4 and with
                 --shards 2: stdout (table slots masked), --writeCounts and
-                --writeClusters byte-identical to phase 4's; one kernel
-                launch per batch and pass (392; the sharded path sends no
-                multi-batch steps), 0 plain calls; stage walls and lines
+                --writeClusters byte-identical to phase 4's; stacked
+                sharded steps, each one CUDA graph replay holding one
+                sketch launch (launches = replays + one warm-up launch per
+                captured graph, fewer than one per batch and pass, 392),
+                0 plain calls; stage walls and lines
  16. lanes    - the lane with --shards 4 --laneCapacity 4096 (overflows: the
                 pass runs again with doubled lanes, output unchanged), and
                 with --labelBlocks 1048576 (labels unchanged)
@@ -83,8 +85,9 @@ Phases (any failure exits non-zero):
                 4, cuda:0), each under a hard timeout: with --readFQB of the
                 lane and with --readFQBShard of the lane split into two
                 barcode-disjoint files, the coordinator's stdout equals phase
-                4's and the other process prints nothing; launches and walls
-                per process
+                4's and the other process prints nothing; each process
+                sends eager stacked steps, one sketch launch each (fewer
+                than 392); steps, launches and walls per process
  18. cpu4     - CUDA and CPU byte-identical with --shards 4 on phase 6's lane
  19. reset    - config #1 through the library API on CUDA: a fresh Engine's
                 count, then Engine.reset() and a recount of the same lane
@@ -101,6 +104,16 @@ Phases (any failure exits non-zero):
                 run eagerly (its kernels back to back on the device), at
                 S = 16 and 1; the sketch at the stacked shape (16 x 4,096
                 reads) against its plain version, timed as in phase 3
+ 21. shard steps - the 800k lane through the library API at --shards 4
+                with flush_batches 16, 5 and 1: report, --writeCounts and
+                --writeClusters byte-identical to phase 4's; steps,
+                replays and launches (each step one graph replay), count
+                and filter+incidence walls of the first and two warm passes
+ 22. join     - CUDA = CPU at -k 31 on phase 6's 20k lane, one GPU and
+                --shards 4: the retained join keying and the segmented
+                dedup's extra sort under CUDA graphs; a second band
+                (min_count 3) and incidence on the same Engine capture the
+                pair graphs again; reports and dumps byte-identical
 The last two lines of stdout before the result are a JSON line describing
 the kernels and the card's name and power limit; the last line is the JSON
 result {"ok": true, "device": {...}}.
@@ -367,22 +380,17 @@ def phase_main(torch, MK, ES, run, lane):
     eng = run(argv, out, err)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches, plain, replays = MK.LAUNCHES, MK.PLAIN_CALLS, ES.REPLAYS
+    launches, plain = MK.LAUNCHES, MK.PLAIN_CALLS
     sys.stderr.write(err.getvalue())
-    steps = eng.stats["dispatches"]
     n_batches = len(eng._lane_cache[3])
-    graphs = list(eng._lane_cache[4]._graphs.values())
-    print(f"main path: {steps} steps over {n_batches} batches per pass "
-          f"(count and incidence), {replays} CUDA graph replays of "
-          f"{len(graphs)} captured graphs, kernel launches {launches}, plain "
-          f"calls {plain}")
     if launches <= 0 or plain != 0:
         fail("the main path did not run every batch through the kernel")
-    if (replays != steps or any(g.launches != 1 for g in graphs)
-            or launches != replays + len(graphs)
-            or launches >= 2 * n_batches):
-        fail("the main path's steps were not one replay with one sketch "
-             "launch each (plus one warm-up launch per graph)")
+    steps, replays, graphs = check_replays("main path", eng, ES, launches,
+                                           2 * n_batches)
+    print(f"main path: {steps} steps over {n_batches} batches per pass "
+          f"(count and incidence), {replays} CUDA graph replays of "
+          f"{graphs} captured graphs, kernel launches {launches}, plain "
+          f"calls {plain}")
     walls = stage_walls(err.getvalue())
     phases = {"count": walls["count"],
               "filter+incidence": walls["filter"] + walls["incidence"],
@@ -677,6 +685,20 @@ def phase_reset(torch, MK, tmp):
           f"(lane on the device); stats {eng.stats}")
 
 
+def timed_passes(torch, eng, fqb):
+    """reset(), then the count and filter+incidence walls of a pass."""
+    eng.reset()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    eng.count(fqb)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    eng.filter()
+    eng.incidence(fqb)
+    torch.cuda.synchronize()
+    return {"count_s": t1 - t0, "filter_incidence_s": time.monotonic() - t1}
+
+
 STEP_SETTINGS = (("S=16", {"flush_batches": 16}), ("S=5", {"flush_batches": 5}),
                  ("S=1", {"flush_batches": 1}),
                  ("S=16 compact off", {"kernel_compact": False}))
@@ -701,18 +723,7 @@ def phase_steps(torch, MK, ES, lane, main_text, main_dumps, tmp, C):
                    if line.startswith("code "))
 
     def passes(eng):
-        """reset(), then the count and filter+incidence walls."""
-        eng.reset()
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        eng.count(fqb)
-        torch.cuda.synchronize()
-        t1 = time.monotonic()
-        eng.filter()
-        eng.incidence(fqb)
-        torch.cuda.synchronize()
-        return {"count_s": t1 - t0,
-                "filter_incidence_s": time.monotonic() - t1}
+        return timed_passes(torch, eng, fqb)
 
     engines, walls = {}, {}
     for name, kw in STEP_SETTINGS:
@@ -1499,21 +1510,41 @@ def lane_argv(lane, *flags):
             "--codeClusters", "--clusterSplit", "--clusterReport"]
 
 
-def phase_shards(torch, MK, run, lane, tmp, main_text, main_dumps,
+def check_replays(what, eng, ES, launches, limit=None):
+    """The engine's steps since its counts were set to 0 were each one
+    CUDA graph replay holding one sketch launch: launches = replays + one
+    warm-up launch per captured graph (and below ``limit``).  Returns
+    (steps, replays, graphs)."""
+    steps, replays = eng.stats["dispatches"], ES.REPLAYS
+    graphs = list(eng._lane_cache[4]._graphs.values())
+    if (replays != steps or any(g.launches != 1 for g in graphs)
+            or launches != replays + len(graphs)
+            or (limit is not None and launches >= limit)):
+        fail(f"{what}: {steps} steps, {replays} replays of {len(graphs)} "
+             f"graphs, {launches} kernel launches (limit {limit})")
+    return steps, replays, len(graphs)
+
+
+def phase_shards(torch, MK, ES, run, lane, tmp, main_text, main_dumps,
                  n_batches):
     """Phase 15: the 800k lane with --shards 4 and --shards 2 through the
-    CLI on CUDA: stdout and both dumps byte-identical to phase 4's, one
-    kernel launch per batch in each pass."""
+    CLI on CUDA: stdout and both dumps byte-identical to phase 4's; every
+    step of both passes one CUDA graph replay holding one sketch launch,
+    fewer launches than one per batch and pass."""
     for n in (4, 2):
         dumps = [os.path.join(tmp, f"shards{n}.{x}")
                  for x in ("counts", "clusters")]
         argv = lane_argv(lane, "--shards", str(n)) + [
             "--writeCounts", dumps[0], "--writeClusters", dumps[1]]
+        ES.REPLAYS = 0
         out, err, eng, launches, wall = run_counted(torch, MK, run, argv)
+        steps, replays, graphs = check_replays(f"--shards {n}", eng, ES,
+                                               launches, 2 * n_batches)
         del eng
-        if launches != 2 * n_batches:
-            fail(f"--shards {n}: {launches} kernel launches for "
-                 f"{n_batches} batches per pass")
+        print(f"shards {n}: {steps} steps over {n_batches} batches per pass "
+              f"(count and incidence), {replays} CUDA graph replays of "
+              f"{graphs} captured graphs, kernel launches {launches} (one "
+              f"per batch and pass: {2 * n_batches})")
         if masked(out) != masked(main_text):
             fail(f"--shards {n} stdout != phase 4's")
         for a, b in zip(dumps, main_dumps):
@@ -1560,12 +1591,11 @@ def phase_lanes(torch, MK, run, lane, tmp, main_text, main_dumps):
 
 
 _HOST_MAIN = ("import sys\n"
-              "from hash10x_tpu_torch.cli.main import main\n"
+              "from hash10x_tpu_torch.cli.main import run\n"
               "from hash10x_tpu_torch.kernels import minimizer as MK\n"
-              "rc = main(sys.argv[1:])\n"
+              "eng = run(sys.argv[1:], sys.stdout, sys.stderr)\n"
               "sys.stderr.write(f'launches {MK.LAUNCHES} plain calls "
-              "{MK.PLAIN_CALLS}\\n')\n"
-              "sys.exit(rc)\n")
+              "{MK.PLAIN_CALLS} steps {eng.stats[\"dispatches\"]}\\n')\n")
 
 
 def free_port():
@@ -1616,11 +1646,12 @@ def split_lane(tmp, reads, bc_ids):
             barcode_keys=keys, read_len=READ_LEN))
 
 
-def phase_hosts(lane, tmp, reads, bc_ids, main_text):
+def phase_hosts(lane, tmp, reads, bc_ids, main_text, n_batches):
     """Phase 17: two processes sharing the card over gloo (--hosts 2
     --shards 4), the whole lane in each and the lane split into two
     barcode-disjoint files: the coordinator's stdout is phase 4's, the other
-    process prints nothing."""
+    process prints nothing; each process sends eager stacked steps, one
+    sketch launch each, fewer than one per batch and pass."""
     split_lane(tmp, reads, bc_ids)
     for src in (["--readFQB", lane],
                 ["--readFQBShard", os.path.join(tmp, "half{host}.fqb")]):
@@ -1637,9 +1668,12 @@ def phase_hosts(lane, tmp, reads, bc_ids, main_text):
         for pid, (_, e, wall) in enumerate(res):
             launch = [line for line in e.splitlines()
                       if line.startswith("launches ")]
-            if not launch or launch[0].split()[1] == "0" \
-                    or launch[0].split()[-1] != "0":
-                fail(f"--hosts 2 process {pid}: {launch}")
+            words = launch[0].split() if launch else []
+            if (len(words) != 7 or words[1] == "0" or words[4] != "0"
+                    or words[1] != words[6]
+                    or int(words[1]) >= 2 * n_batches):
+                fail(f"--hosts 2 process {pid}: {launch} (one launch per "
+                     f"step, fewer than {2 * n_batches})")
             print("\n".join(f"hosts {src[0]} process {pid} stage {line}"
                             for line in stage_lines(e)))
             print_walls(f"hosts {src[0]} process {pid}", shard_walls(e),
@@ -1671,6 +1705,155 @@ def phase_cuda_vs_cpu_shards(run, tmp):
         fail("CUDA and CPU runs differ with --shards 4 on the ragged lane")
     print(f"cuda vs cpu --shards 4: 20k ragged lane, stdout "
           f"({outs[0][0].count(chr(10))} lines) and dumps byte-identical")
+
+
+SHARD_STEP_FLUSH = (16, 5, 1)
+
+
+def phase_shard_steps(torch, MK, ES, lane, main_text, main_dumps, tmp,
+                      n_batches):
+    """Phase 21: the 800k lane through the library API at --shards 4 (one
+    card) with flush_batches 16, 5 and 1: report and dumps byte-identical
+    to phase 4's; per setting the steps, replays and launches of the first
+    count and incidence pass (every step one graph replay holding one
+    sketch launch), and its count and filter+incidence walls (captures
+    included) and those of two warm reset() passes."""
+    from hash10x_tpu_torch.engine import Engine, EngineConfig
+    from hash10x_tpu_torch.hashspec import HashSpec
+    from hash10x_tpu_torch.io.fqb import load_fqb
+    fqb = load_fqb(lane)
+    want = "".join(line for line in main_text.splitlines(True)
+                   if line.startswith("code "))
+    for fb in SHARD_STEP_FLUSH:
+        eng = Engine(EngineConfig(spec=HashSpec(k=K, w=W, seed=SEED),
+                                  table_bits=22, min_count=2, max_count=64,
+                                  min_friend_share=8, n_shards=4,
+                                  flush_batches=fb), "cuda", log=None)
+        MK.LAUNCHES = MK.PLAIN_CALLS = ES.REPLAYS = 0
+        first = timed_passes(torch, eng, fqb)
+        launches, plain = MK.LAUNCHES, MK.PLAIN_CALLS
+        if launches <= 0 or plain:
+            fail(f"shard steps S={fb}: kernel launches {launches}, plain "
+                 f"calls {plain}")
+        steps, replays, graphs = check_replays(
+            f"shard steps S={fb}", eng, ES, launches,
+            2 * n_batches if fb > 1 else None)
+        eng.cluster()
+        eng.split()
+        out = io.StringIO()
+        eng.report(out)
+        dumps = write_dumps(eng, tmp, "shard_steps")
+        if out.getvalue() != want or not all(
+                same_files(a, b) for a, b in zip(dumps, main_dumps)):
+            fail(f"shard steps S={fb}: report or dumps != phase 4's")
+        warm = [timed_passes(torch, eng, fqb) for _ in range(2)]
+        print(f"shard steps --shards 4 flush_batches {fb}: report, counts "
+              f"and clusters dumps byte-identical to phase 4; {steps} steps "
+              f"over {n_batches} batches per pass (count and incidence), "
+              f"{replays} replays of {graphs} graphs, kernel launches "
+              f"{launches}, plain calls 0; walls (s) first pass (captures "
+              f"included) count {first['count_s']:.4f} filter+incidence "
+              f"{first['filter_incidence_s']:.4f}; warm passes "
+              + "; ".join(f"count {w['count_s']:.4f} filter+incidence "
+                          f"{w['filter_incidence_s']:.4f}" for w in warm))
+        del eng
+
+
+def phase_join_graphs(torch, MK, ES, tmp):
+    """Phase 22: CUDA = CPU at -k 31 on phase 6's 20k ragged lane through
+    the library API, on one GPU and at --shards 4.  At k = 31 the
+    incidence keys by the retained join (no combined key fits) and the
+    count pass's segmented dedup takes its extra sort (62-bit hashes leave
+    no bits for the batch index).  On each Engine a second band
+    (min_count 3) and incidence follow the first, so the join graph (one
+    GPU) and the sharded pair graph (--shards 4) are captured again: the
+    report and clusters dump of both bands and the counts dump are
+    byte-identical between CUDA and the CPU and between one GPU and
+    --shards 4.  Then the lane as one process's --readFQBShard file at
+    --shards 4: the same first band, and no graph captured twice (the
+    global-id lane and its graphs are cached with it)."""
+    from hash10x_tpu_torch.engine import Engine, EngineConfig
+    from hash10x_tpu_torch.hashspec import HashSpec
+    from hash10x_tpu_torch.io.fqb import load_fqb
+    from hash10x_tpu_torch.table.incidence import combined_key_bits
+    fqb = load_fqb(os.path.join(tmp, "ragged.fqb"))
+    if combined_key_bits(31, fqb.n_barcodes):
+        fail("-k 31: the ragged lane would take combined keys")
+    texts = {}
+    for shards in (1, 4):
+        for dev in ("cuda", "cpu"):
+            eng = Engine(EngineConfig(spec=HashSpec(k=31, w=W, seed=SEED),
+                                      batch_reads=1024, min_friend_share=4,
+                                      n_shards=shards), dev, log=None)
+            MK.LAUNCHES = MK.PLAIN_CALLS = 0
+            eng.count(fqb)
+            out = []
+            for lo in (2, 3):
+                eng.filter(min_count=lo)
+                before = list(eng._lane_cache[4]._graphs.values())
+                eng.incidence(fqb)
+                # pair graphs hold their retained band (src): the second
+                # band's incidence must capture its own
+                recaptured = sum(
+                    g.src is not None and all(g is not b for b in before)
+                    for g in eng._lane_cache[4]._graphs.values())
+                eng.cluster()
+                for write in (eng.report, eng.write_clusters):
+                    buf = io.StringIO()
+                    write(buf)
+                    out.append(buf.getvalue())
+            buf = io.StringIO()
+            eng.write_counts(buf)
+            out.append(buf.getvalue())
+            texts[shards, dev] = out
+            if dev == "cuda":
+                if MK.LAUNCHES <= 0 or MK.PLAIN_CALLS or not recaptured:
+                    fail(f"-k 31 --shards {shards}: kernel launches "
+                         f"{MK.LAUNCHES}, plain calls {MK.PLAIN_CALLS}, "
+                         f"{recaptured} pair graphs captured again")
+                print(f"join graphs -k 31 --shards {shards}: kernel launches "
+                      f"{MK.LAUNCHES}, plain calls 0, {recaptured} pair "
+                      "graph(s) captured again for the second band")
+            del eng
+    first = texts[1, "cuda"]
+    if any(t != first for t in texts.values()):
+        fail("-k 31: CUDA, CPU, one GPU and --shards 4 differ")
+    print(f"join graphs -k 31: 20k ragged lane, two bands, report "
+          f"({first[0].count(chr(10))} and {first[2].count(chr(10))} "
+          f"lines), clusters and counts dumps byte-identical on CUDA and "
+          f"the CPU, one GPU and --shards 4")
+    # the lane as this process's --readFQBShard file at one process: the
+    # global-id lane and its graphs are cached with it, so the incidence
+    # pass replays the count pass's lane and captures only its pair graphs
+    eng = Engine(EngineConfig(spec=HashSpec(k=31, w=W, seed=SEED),
+                              batch_reads=1024, min_friend_share=4,
+                              n_shards=4), "cuda", log=None)
+    MK.LAUNCHES = MK.PLAIN_CALLS = ES.REPLAYS = 0
+    eng.count(fqb, local_shard=True)
+    steps = eng._shard_lane_cache[5]
+    eng.filter(min_count=2)
+    eng.incidence(fqb, local_shard=True)
+    eng.cluster()
+    out = []
+    for write in (eng.report, eng.write_clusters, eng.write_counts):
+        buf = io.StringIO()
+        write(buf)
+        out.append(buf.getvalue())
+    graphs = list(steps._graphs.values())
+    if (eng._shard_lane_cache[5] is not steps or MK.PLAIN_CALLS
+            or ES.REPLAYS != eng.stats["dispatches"]
+            or any(g.launches != 1 for g in graphs)
+            or MK.LAUNCHES != ES.REPLAYS + len(graphs)):
+        fail(f"-k 31 --shards 4 local shard: {eng.stats['dispatches']} "
+             f"steps, {ES.REPLAYS} replays of {len(graphs)} graphs, kernel "
+             f"launches {MK.LAUNCHES}, plain calls {MK.PLAIN_CALLS}")
+    if out != [first[0], first[1], first[4]]:
+        fail("-k 31 --shards 4 local shard: report or dumps differ")
+    print(f"join graphs -k 31 --shards 4 local shard lane: "
+          f"{eng.stats['dispatches']} steps, {ES.REPLAYS} replays of "
+          f"{len(graphs)} graphs (none captured twice), kernel launches "
+          f"{MK.LAUNCHES}; report and dumps byte-identical")
+    del eng
 
 
 def main() -> int:
@@ -1735,10 +1918,10 @@ def main() -> int:
         phase_cuda_vs_cpu_legacy(run, tmp)
         phase_observe(torch, MK, run, tmp, reads, bc_ids, text)
         elapsed("phases 7-14")
-        phase_shards(torch, MK, run, lane, tmp, text, main_dumps,
+        phase_shards(torch, MK, ES, run, lane, tmp, text, main_dumps,
                      n_batches)
         phase_lanes(torch, MK, run, lane, tmp, text, main_dumps)
-        phase_hosts(lane, tmp, reads, bc_ids, text)
+        phase_hosts(lane, tmp, reads, bc_ids, text, n_batches)
         phase_cuda_vs_cpu_shards(run, tmp)
         elapsed("phases 15-18")
         phase_reset(torch, MK, tmp)
@@ -1746,6 +1929,11 @@ def main() -> int:
         stacked = phase_steps(torch, MK, ES, lane, text, main_dumps, tmp,
                               compact_rows)
         elapsed("phase 20")
+        phase_shard_steps(torch, MK, ES, lane, text, main_dumps, tmp,
+                          n_batches)
+        elapsed("phase 21")
+        phase_join_graphs(torch, MK, ES, tmp)
+        elapsed("phase 22")
 
     kernels = [kernel_entry(
         "seqhash_sketch", launches, max(max_err, fuzz_err), *main_times,

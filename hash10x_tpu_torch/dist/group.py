@@ -84,12 +84,13 @@ class ShardGroup:
 
     def lane_width(self, lanes: torch.Tensor, pad) -> int:
         """The widest lane's entry count over every process, for
-        ``(n_local, n, cap)`` lanes holding their entries first and ``pad``
-        after (a collective); ``cap`` with one process, where nothing
-        travels."""
+        ``(n_local, n, cap)`` lanes, or ``(n_local, n, S, cap)`` (one lane
+        per batch of a stacked step), holding their entries first and
+        ``pad`` after (a collective); ``cap`` with one process, where
+        nothing travels."""
         if self.world == 1:
-            return lanes.shape[2]
-        used = torch.tensor([[int((lanes != pad).sum(dim=2).max())]],
+            return lanes.shape[-1]
+        used = torch.tensor([[int((lanes != pad).sum(dim=-1).max())]],
                             device=self.device)
         return max(int(self.all_reduce(used, "max")[0]), 1)
 
@@ -98,20 +99,20 @@ class ShardGroup:
         """``(n_local, n, ...)`` send lanes -> ``(n_local, n, ...)`` receipts:
         ``out[i, s]`` is what shard ``s`` sent to shard ``lo + i``.
 
-        With ``pad``, the lanes are ``(n_local, n, cap)`` with their entries
-        first and ``pad`` after: between processes only the first ``width``
-        slots (default ``lane_width``) travel, and the receipts are padded
-        back to ``cap``."""
+        With ``pad``, the lanes are ``(n_local, n, cap)`` or ``(n_local, n,
+        S, cap)`` with their entries first and ``pad`` after: between
+        processes only the first ``width`` slots (default ``lane_width``)
+        of every lane travel, and the receipts are padded back to ``cap``."""
         if self.world == 1:
             return lanes.transpose(0, 1).contiguous()
         if pad is not None:
-            cap = lanes.shape[2]
+            cap = lanes.shape[-1]
             m = width if width is not None else self.lane_width(lanes, pad)
-            recv = self.all_to_all(lanes[:, :, :m].contiguous())
+            recv = self.all_to_all(lanes[..., :m].contiguous())
             if m == cap:
                 return recv
             return torch.cat([recv, recv.new_full(
-                (recv.shape[0], recv.shape[1], cap - m), pad)], dim=2)
+                (*recv.shape[:-1], cap - m), pad)], dim=-1)
         nl, w = self.n_local, self.world
         rest = lanes.shape[2:]
         # (src_local, dst_rank, dst_local, ...) -> dst_rank-major send buffer

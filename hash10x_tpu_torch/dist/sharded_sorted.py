@@ -87,13 +87,13 @@ def to_lanes(starts: torch.Tensor,
              payloads: Sequence[Tuple[torch.Tensor, int]], cap: int):
     """Destination-sorted rows -> fixed-capacity send lanes.
 
-    ``starts (n_local, n + 1)`` are the per-destination segment bounds of
-    each row of the ``(n_local, E)`` payloads; returns each payload as
-    ``(n_local, n, cap)`` lanes (pads past a segment's end) and the exact
+    ``starts (rows, n + 1)`` are the per-destination segment bounds of
+    each row of the ``(rows, E)`` payloads; returns each payload as
+    ``(rows, n, cap)`` lanes (pads past a segment's end) and the exact
     number of entries each row dropped past ``cap``."""
-    seg = starts[:, 1:] - starts[:, :-1]                         # (nl, n)
+    seg = starts[:, 1:] - starts[:, :-1]                         # (rows, n)
     lane_pos = torch.arange(cap, device=starts.device)
-    valid = lane_pos < seg[..., None]                            # (nl, n, cap)
+    valid = lane_pos < seg[..., None]                          # (rows, n, cap)
     idx = torch.where(valid, starts[:, :-1, None] + lane_pos, 0)
     nl, n = seg.shape
     flat_idx = idx.reshape(nl, n * cap)
@@ -102,19 +102,34 @@ def to_lanes(starts: torch.Tensor,
     return lanes, torch.clamp(seg - cap, min=0).sum(dim=1)
 
 
-def route_low(group: ShardGroup, keys: torch.Tensor, cap: int):
-    """Route ``(n_local, E)`` keys (``INT64_MAX`` pads) to the shard of their
-    low bits through ``cap``-slot lanes: -> (received ``(n_local, n * cap)``
-    keys, drops per row)."""
-    nl, n = group.n_local, group.n_shards
+def _exchange(group: ShardGroup, lanes: torch.Tensor, pad, S: int,
+              width: Optional[int] = None) -> torch.Tensor:
+    """``(n_local * S, n, cap)`` send lanes (row ``i * S + j``: local shard
+    i's lanes of batch j) -> ``(n_local * S, n * cap)`` receipts, row ``i
+    * S + j`` what every shard sent shard ``lo + i`` in batch j.  The lanes
+    travel as ``(n_local, n, S, cap)``, one lane per batch, so a batch's
+    entries never leave its own lane."""
+    rows, n, cap = lanes.shape
+    nl = rows // S
+    send = lanes.reshape(nl, S, n, cap).transpose(1, 2)
+    recv = group.all_to_all(send, pad, width)               # (nl, n, S, cap)
+    return recv.transpose(1, 2).reshape(rows, n * cap)
+
+
+def route_low(group: ShardGroup, keys: torch.Tensor, cap: int, S: int = 1):
+    """Route ``(n_local * S, E)`` keys (``INT64_MAX`` pads; row ``i * S +
+    j``: local shard i's keys of batch j) to the shard of their low bits
+    through ``cap``-slot lanes, each batch in lanes of its own: ->
+    (received ``(n_local * S, n * cap)`` keys, drops per row)."""
+    n = group.n_shards
     dest = torch.where(keys != INT64_MAX, keys & (n - 1), n)
     ds, order = torch.sort(dest, dim=1, stable=True)
     starts = torch.searchsorted(
-        ds, torch.arange(n + 1, device=keys.device).expand(nl, -1)
+        ds, torch.arange(n + 1, device=keys.device).expand(keys.shape[0], -1)
         .contiguous())
     (lanes,), drop = to_lanes(starts, [(keys.gather(1, order), INT64_MAX)],
                               cap)
-    return group.all_to_all(lanes, INT64_MAX).reshape(nl, n * cap), drop
+    return _exchange(group, lanes, INT64_MAX, S), drop
 
 
 class ShardedSortedTable:
@@ -178,11 +193,19 @@ class ShardedSortedTable:
 
 
 class SortedCountStep:
-    """The sharded count step: ``step(table, codes, lengths, bcs)`` sketches
-    this process's rows of one global batch (``codes (B_local, L) uint8``,
-    ``B_local = batch_reads / world``; shard ``lo + i`` takes rows
-    ``[i * per, (i + 1) * per)``), routes the emissions to their owner
-    shards and buffers them there.
+    """The sharded count step, the port of the JAX package's
+    ``make_sorted_count_step``.
+
+    The engine sends stacked steps (:meth:`stacked`, the JAX package's
+    ``scan_spans`` on one process and ``scan_stacked`` across processes):
+    this process's rows of S global batches in one sketch launch, each
+    (local shard, batch) row routed through lanes of its own batch's size
+    and reduced on its own, every local shard's batches appended at once
+    (:meth:`append`).  ``step(table, codes, lengths, bcs)`` is the same
+    work for one batch (``codes (B_local, L) uint8``, ``B_local =
+    batch_reads / world``; shard ``lo + i`` takes rows ``[i * per, (i + 1)
+    * per)``) with one dedup call per local shard: the plain form the tests
+    hold the stacked step to.
 
     ``count_mode="barcodes"``: (hash, barcode) pairs route together and are
     pre-reduced at the owner, so a barcode split across shards still counts
@@ -193,17 +216,19 @@ class SortedCountStep:
     (hash, barcode) to the hash's range owner, which maps the hash to its
     canonical global rank (local rank + shard offset) and keys the pair as
     ``barcode * n_kmers + rank``; hop 2 routes the pair keys by their low
-    bits to their dedup owner.  ``compact_to`` is the sketch kernel's
-    per-read compaction width (0 = dense rows).  ``emission_cap_factor`` is
-    the JAX step's: its per-read compaction width (0 = full rows) sizes the
-    send lanes, so ``--laneCapacity`` means the same in both packages."""
+    bits to their dedup owner.  ``n_codes`` (barcode ids lie below it)
+    bounds the pair keys, so the stacked dedup can fold the row index into
+    them.  ``compact_to`` is the sketch kernel's per-read compaction width
+    (0 = dense rows).  ``emission_cap_factor`` is the JAX step's: its
+    per-read compaction width (0 = full rows) sizes the send lanes, so
+    ``--laneCapacity`` means the same in both packages."""
 
     def __init__(self, spec: HashSpec, group: ShardGroup,
                  mode: str = "minimizer", modulus: int = 0,
                  syncmer_s: int = 0, lane_capacity: int = 0,
                  count_mode: str = "occurrences", compact_to: int = 0,
                  pair_retained=None, pair_retained_sharded=None,
-                 emission_cap_factor: int = 4):
+                 emission_cap_factor: int = 4, n_codes: int = 0):
         if pair_retained is not None and pair_retained_sharded is not None:
             raise ValueError("pass pair_retained OR pair_retained_sharded")
         self.spec, self.group = spec, group
@@ -238,6 +263,12 @@ class SortedCountStep:
                 .astype(np.int64)
             self.ret_rows = [ret[dest == s] for s in range(group.lo, group.hi)]
             self.n_kmers = int(ret.shape[0])
+        # real keys lie below 2**key_bits: hashes are 2k bits, pair keys
+        # below n_codes * n_kmers
+        self.key_bits = 2 * spec.k
+        if self.pair:
+            self.key_bits = ((max(n_codes * self.n_kmers, 1) - 1).bit_length()
+                             if n_codes else 63)
 
     # -- sizing (the JAX package's rules, so --laneCapacity means the same) ----
 
@@ -301,17 +332,18 @@ class SortedCountStep:
         return torch.cat([hs.new_zeros(hs.shape[0], 1),
                           torch.searchsorted(hs, b)], dim=1)
 
-    def _route_range(self, flat_h, flat_bc, cap):
-        """Hop by hash range: -> (received hashes, barcodes or None, drops)
-        as (n_local, n * cap) rows."""
-        nl, n = self.group.n_local, self.group.n_shards
+    def _route_range(self, flat_h, flat_bc, cap, S: int = 1):
+        """Hop by hash range of ``(n_local * S, E)`` rows (row ``i * S +
+        j``: local shard i's emissions of batch j): -> (received hashes,
+        barcodes or None, drops per row) as ``(n_local * S, n * cap)``
+        rows."""
         hs, order = torch.sort(flat_h, dim=1, stable=True)
         payloads = [(hs, INT64_MAX)]
         if flat_bc is not None:
             payloads.append((flat_bc.gather(1, order), -1))
         lanes, drop = to_lanes(self._range_starts(hs), payloads, cap)
         m = self.group.lane_width(lanes[0], INT64_MAX)
-        recv = [self.group.all_to_all(x, p, m).reshape(nl, n * cap)
+        recv = [_exchange(self.group, x, p, S, m)
                 for x, (_, p) in zip(lanes, payloads)]
         return recv[0], (recv[1] if flat_bc is not None else None), drop
 
@@ -382,6 +414,88 @@ class SortedCountStep:
                 uh, uw, o = st.dedup_weighted(rh[i], slots)
             self._append(t, i, uh, uw, drop[i] + o)
         return t
+
+    def stacked(self, codes: torch.Tensor, lengths: torch.Tensor,
+                bcs: torch.Tensor, S: int):
+        """The step over S global batches at once: ``codes (S * B_local,
+        L)`` holds this process's rows of each batch, batch-major (pad
+        batches are empty rows).  Returns device tensors: keys and
+        weights ``(n_local, S * slots)`` (local shard i's batch j in slots
+        ``[j * slots, (j + 1) * slots)`` of row i), drops ``(n_local,)``
+        (route drops and dedup overflow, each batch's lanes and slots sized
+        as one batch's) and the sketch overflow.  With one process nothing
+        is read back to the host, so a CUDA graph can hold the step."""
+        g = self.group
+        nl, n = g.n_local, g.n_shards
+        B_local, L = codes.shape[0] // S, codes.shape[1]
+        per = B_local // nl
+        h, _, emit, over = minimizer.sketch(
+            self.spec, codes, lengths, mode=self.mode,
+            compact_to=self.compact_to, m=self.modulus,
+            syncmer_s=self.syncmer_s)
+        R = h.shape[1]
+        rows = nl * S
+
+        def shard_major(x):   # (S * nl * per, R) -> rows i * S + j
+            return x.reshape(S, nl, per * R).transpose(0, 1).reshape(
+                rows, per * R)
+        with_bc = self.pair or self.count_mode == "barcodes"
+        flat_h = shard_major(torch.where(emit, h, INT64_MAX))
+        flat_bc = shard_major(bcs.to(torch.int64)[:, None].expand(-1, R)) \
+            if with_bc else None
+        cap = self.lane_cap(per * self.flat_per_read(L - self.spec.k + 1))
+        slots = self.slots_recv(per * n, L)
+        if n == 1:
+            rh, rb, drop = flat_h, flat_bc, flat_h.new_zeros(rows)
+        else:
+            with record_function("exchange[pair]" if self.pair
+                                 else "exchange[count]"):
+                rh, rb, drop = self._route_range(flat_h, flat_bc, cap, S)
+        if self.pair:
+            rh, rb = rh.reshape(nl, -1), rb.reshape(nl, -1)
+            keys = torch.stack([self._pair_keys(i, rh[i], rb[i])
+                                for i in range(nl)]).reshape(rows, -1)
+            if n > 1:
+                with record_function("exchange[pair]"):
+                    keys, drop2 = route_low(g, keys,
+                                            self.lane_cap(keys.shape[1]), S)
+                drop = drop + drop2
+            uh, uw, o = st.dedup_weighted_segmented(keys, slots, self.key_bits)
+        elif with_bc:
+            uh, uw, o = st.dedup_pairs_weighted_segmented(rh, rb, slots,
+                                                          self.key_bits)
+        else:
+            uh, uw, o = st.dedup_weighted_segmented(rh, slots, self.key_bits)
+        return (uh.reshape(nl, S * slots), uw.reshape(nl, S * slots),
+                (drop + o).reshape(nl, S).sum(dim=1),
+                over.sum(dtype=torch.int64))
+
+    def graph_key(self, S: int, bsz: int, read_len: int) -> tuple:
+        """What a CUDA graph of :meth:`stacked` over ``S`` batches of
+        ``bsz`` lane rows depends on besides its lane, its (offset, m)
+        input and, for a pair step, the retained rows."""
+        per = bsz // self.group.n_local
+        cap = self.lane_cap(per * self.flat_per_read(read_len - self.spec.k
+                                                     + 1))
+        return ("sharded", S, bsz, read_len, self.spec, self.mode,
+                self.modulus, self.syncmer_s, self.compact_to,
+                self.count_mode, self.pair, self.group.n_shards,
+                self.key_bits, cap,
+                self.slots_recv(per * self.group.n_shards, read_len))
+
+    def append(self, t: ShardedSortedTable, out, S: int,
+               n_batches: int) -> None:
+        """Buffer the first ``n_batches`` batches (the real ones) of the
+        output ``out`` of a stacked step over S batches into each local
+        shard of ``t``, and add its drops and sketch overflow."""
+        self.check_table(t)
+        keys, wts, drops, over = out
+        n = n_batches * (keys.shape[1] // S)
+        t.drops += drops
+        t.sketch_over += over
+        for i in range(len(t.rows)):
+            t.rows[i] = st.append_pairs(st.grow_buf(t.rows[i], n),
+                                        keys[i, :n], wts[i, :n])
 
     def _pair_keys(self, i: int, rh: torch.Tensor, rb: torch.Tensor):
         """Owner-side canonical pair keys of shard ``lo + i``'s receipts."""

@@ -35,12 +35,15 @@ retained band, the incidence and the labels stay shard-resident, and whole
 views (``table``, ``retained_hashes``, ``inc``, ``cluster_labels``,
 ``split_inc``) are gathered only when an output command asks for them.
 Every gather is a collective, so in a multi-process run every process
-enters it (``host_materialize``).
+enters it (``host_materialize``).  The sharded count and incidence passes
+send the same multi-batch steps, each batch routed in lanes of its own: a
+CUDA graph replay with one process, eager steps over several (their
+exchanges cross the host).
 
 ``stats`` holds two host counters that read no device value: ``dispatches``
-(steps sent to the device in count and incidence: multi-batch steps on one
-device, batch steps on the sharded path) and ``flushes`` (sort-merges of an
-append buffer into a table during them).
+(multi-batch steps sent to the device in count and incidence, sharded or
+not) and ``flushes`` (sort-merges of an append buffer into a table during
+them).
 """
 
 from __future__ import annotations
@@ -57,11 +60,10 @@ import torch
 from . import INT64_MAX
 from . import convert
 from .cluster import cooccur
-from .core.encode import unpack_2bit_torch
 from .dist import sharded_inc as SI
 from .dist import sharded_sorted as DS
 from .dist.group import ShardGroup
-from .engine_steps import LaneSteps, StepSpec
+from .engine_steps import LaneSteps, StepSpec, sharded_step
 from .hashspec import HashSpec
 from .io.fqb import Fqb
 from .kernels import minimizer
@@ -158,6 +160,9 @@ class Engine:
         self._read_len = 0
         # (fqb, batch size, device lane, spans, the lane's LaneSteps)
         self._lane_cache = None
+        # one process's --readFQBShard lane: (fqb, rows per batch, global-id
+        # lane, schedule, global barcode count, the lane's LaneSteps)
+        self._shard_lane_cache = None
         self.timer = StageTimer(log, device=self.device)
         self.reset()
 
@@ -785,50 +790,54 @@ class Engine:
             self._group = ShardGroup.of_process(n, self.device)
         return self._group
 
-    def _rows(self, lane, lo: int, m: int, rows: int):
-        """Reads ``[lo, lo + m)`` of the device lane as ``rows`` rows of
-        (codes, lengths, barcode ids), padded with empty reads."""
-        packed, lengths, bcs, nmask = lane
-
-        def take(x, fill):
-            part = x[lo:lo + m]
-            if m == rows:
-                return part
-            return torch.cat([part, x.new_full((rows - m,) + x.shape[1:],
-                                               fill)])
-        codes = unpack_2bit_torch(take(packed, 0), self._read_len,
-                                  None if nmask is None else take(nmask, 0))
-        return codes, take(lengths, 0), take(bcs, -1)
-
-    def _sharded_batches(self, fqb: Fqb, local_shard: bool):
-        """This process's rows of every global batch: (codes, lengths,
-        barcode ids, group id).  The whole lane loaded by every process:
-        every process computes the same schedule and takes rows
-        ``[rank * B / world, (rank + 1) * B / world)`` of each batch."""
-        if local_shard:
-            yield from self._local_shard_batches(fqb)
-            return
+    def _shard_schedule(self, fqb: Fqb, local_shard: bool):
+        """This process's part of every global batch of a sharded pass:
+        (lane, steps, per, spans).  ``lane`` is the device lane, ``per``
+        the rows this process holds of each global batch, and ``spans``
+        the batches as (a, a + m, group id): this process's m rows of the
+        batch start at lane row a.  ``steps`` is the lane's ``LaneSteps``
+        with one process (each step a CUDA graph replay on the card), None
+        with several, whose steps run eagerly (every exchange crosses the
+        host).  The whole lane loaded by every process: every process
+        computes the same schedule and takes rows ``[rank * B / world,
+        (rank + 1) * B / world)`` of each batch.  One process's local
+        shard lane is cached with its steps, as ``_lane`` caches the whole
+        lane, so the incidence pass replays the count pass's graphs' lane."""
         g = self._shard_group()
         per = self.cfg.batch_reads // g.world
+        if local_shard:
+            if g.world > 1:
+                lane, spans = self._local_shard_lane(fqb, per)
+                return lane, None, per, spans
+            c = self._shard_lane_cache
+            if c is None or c[0] is not fqb or c[1] != per:
+                lane, spans = self._local_shard_lane(fqb, per)
+                c = self._shard_lane_cache = (fqb, per, lane, spans,
+                                              self._global_n_barcodes,
+                                              LaneSteps(lane))
+            self._global_n_barcodes = c[4]
+            return c[2], c[5], per, c[3]
         lane, spans = self._lane(fqb)
+        out = []
         for a, b, gid in spans:
             lo = a + g.rank * per
-            yield (*self._rows(lane, lo, min(max(b - lo, 0), per), per), gid)
+            out.append((lo, lo + min(max(b - lo, 0), per), gid))
+        return lane, (self._lane_cache[4] if g.world == 1 else None), per, \
+            out
 
-    def _local_shard_batches(self, fqb: Fqb):
+    def _local_shard_lane(self, fqb: Fqb, per: int):
         """Per-process input shards: each process holds its own
         barcode-disjoint reads (checked by gathering every barcode key) and
         fills its row block of every global batch.  Global barcode ids are
         ranks in the global key set, the ids one process would give the
-        whole lane.  In barcodes mode an oversized barcode's batches become
-        global batches of their own process (the others send empty rows), so
-        its side table sees only its reads.  Sets ``_global_n_barcodes``.
-        (The JAX feed also ORs per-batch flags over the processes to pick one
-        jit variant; the CUDA kernel takes short reads and N bases, so the
-        port has no per-batch variant to agree on.)"""
+        whole lane; the returned lane carries them.  In barcodes mode an
+        oversized barcode's batches become global batches of their own
+        process (the others send empty rows, spans (0, 0)), so its side
+        table sees only its reads.  Sets ``_global_n_barcodes``.  (The JAX
+        feed also ORs per-batch flags over the processes to pick one jit
+        variant; the CUDA kernel takes short reads and N bases, so the port
+        has no per-batch variant to agree on.)"""
         g = self._shard_group()
-        bsz = self.cfg.batch_reads
-        per = bsz // g.world
         rls = g.host_allgather(np.array([fqb.read_len], np.int64)).reshape(-1)
         if not (rls == rls[0]).all():
             raise ValueError("shard files disagree on read_len: "
@@ -849,7 +858,9 @@ class Engine:
         l2g = torch.from_numpy(np.searchsorted(
             sorted_keys, fqb.barcode_keys.astype(np.int64)).astype(np.int64)
             if fqb.n_barcodes else np.zeros(1, np.int64)).to(self.device)
-        lane, spans = self._lane(fqb, per)
+        (packed, lengths, bcs, nmask), spans = self._lane(fqb, per)
+        lane = (packed, lengths, torch.where(bcs >= 0, l2g[bcs.clamp(min=0)],
+                                             -1), nmask)
         if self.cfg.count_mode == "barcodes":
             normal = [(a, e) for a, e, gid in spans if gid is None]
             groups, last = [], None
@@ -870,24 +881,38 @@ class Engine:
         all_sizes = g.host_allgather(sizes)
         # the global schedule, the same on every process: every normal
         # batch, then each process's groups in (process, group) order
-        sched = [("n", b) for b in range(int(shapes[:, 0].max(initial=0)))]
+        out = [(*(normal[b] if b < len(normal) else (0, 0)), None)
+               for b in range(int(shapes[:, 0].max(initial=0)))]
         gctr = 0
         for p in range(g.world):
             for gi in range(int(shapes[p, 1])):
                 gctr += 1
-                sched += [("g", p, gi, j, gctr)
-                          for j in range(int(all_sizes[p, gi]))]
-        for item in sched:
-            if item[0] == "n":
-                span = normal[item[1]] if item[1] < len(normal) else None
-            else:
-                span = groups[item[2]][item[3]] if item[1] == g.rank else None
-            a, e = span if span is not None else (0, 0)
-            codes, ln, bc = self._rows(lane, a, e - a, per)
-            bc = torch.where(bc >= 0, l2g[bc.clamp(min=0)], -1)
-            yield codes, ln, bc, item[4] if item[0] == "g" else None
+                out += [(*(groups[gi][j] if p == g.rank else (0, 0)), gctr)
+                        for j in range(int(all_sizes[p, gi]))]
+        return lane, out
+
+    def _shard_step(self, run, cs: DS.SortedCountStep, t, grp,
+                    src=None) -> None:
+        """One stacked sharded step of ``cs`` over the spans ``grp`` (at most
+        ``flush_batches``) of the schedule ``run`` into the table ``t``.  S
+        is ``len(grp)`` rounded up to a power of two, as in ``_step``; pad
+        batches are empty.  ``src``: the retained band a pair step keys
+        with (its graph is captured again when it changes)."""
+        lane, steps, per, _ = run
+        S = 1 << (len(grp) - 1).bit_length()
+        om = np.zeros((2, S), np.int64)
+        om[:, :len(grp)] = np.array([(a, b - a) for a, b in grp]).T
+        self.stats["dispatches"] += 1
+        if steps is not None:
+            out = steps.sharded(cs, om, per, self._read_len, src)
+        else:
+            out = sharded_step(cs, lane, torch.from_numpy(om).to(self.device),
+                               per, self._read_len)
+        cs.append(t, out, S, len(grp))
 
     def _count_step(self, g: ShardGroup, count_mode: str, **retained):
+        """The sharded step of this lane; ``retained`` (``n_codes`` and the
+        band) makes it the incidence pair step."""
         cfg = self.cfg
         return DS.SortedCountStep(
             cfg.spec, g, mode=cfg.mode, modulus=cfg.modulus,
@@ -935,22 +960,30 @@ class Engine:
         self._lane_retry("count", self._count_sharded_once, fqb, local_shard)
 
     def _count_sharded_once(self, fqb: Fqb, local_shard: bool) -> None:
-        """Sharded count pass: every process sketches its rows of each
-        global batch, emissions route to their hash-range owner shards, and
-        oversized barcodes stream through a side table (occurrences, same
-        splitters) whose distinct keys merge in shard-locally at the group's
-        end.  The table stays sharded for filter and incidence."""
+        """Sharded count pass, the port of the JAX engine's sharded count
+        loops (``scan_spans`` on one process, ``scan_stacked`` through
+        ``_stacked_dispatcher`` across processes): steps of up to
+        ``flush_batches`` global batches, each one sketch launch over this
+        process's rows of its batches, whose emissions route batch by batch
+        to their hash-range owner shards and reduce there
+        (``SortedCountStep.stacked``).  With one process every step is one
+        CUDA graph replay on the card; over several processes the steps run
+        eagerly.  In barcodes mode an oversized barcode's batches go one per
+        step into a side table (occurrences, same splitters) whose distinct
+        keys merge in shard-locally at the group's end.  The table stays
+        sharded for filter and incidence."""
         cfg = self.cfg
         g = self._shard_group()
         self._check_sharded_batch(g)
         self._read_len = fqb.read_len
+        run = self._shard_schedule(fqb, local_shard)
         step = self._count_step(g, cfg.count_mode)
         dt = self._sharded_table_for(g, step)
         side = side_step = None
         cur = None
-        for codes, ln, bc, gid in self._sharded_batches(fqb, local_shard):
-            self.stats["dispatches"] += 1
-            if gid is not None and cfg.count_mode == "barcodes":
+        for grp, gid in self._step_groups(run[3],
+                                          cfg.count_mode == "barcodes"):
+            if gid is not None:
                 if side_step is None:
                     side_step = self._count_step(g, "occurrences")
                 if gid != cur and side is not None:
@@ -959,12 +992,12 @@ class Engine:
                 cur = gid
                 if side is None:
                     side = self._sharded_table_for(g, side_step)
-                side = side_step(side, codes, ln, bc)
+                self._shard_step(run, side_step, side, grp)
                 continue
             if side is not None:
                 dt = DS.merge_group(dt, side)
                 side, cur = None, None
-            dt = step(dt, codes, ln, bc)
+            self._shard_step(run, step, dt, grp)
         if side is not None:
             dt = DS.merge_group(dt, side)
         dt = step.finish(dt)
@@ -1011,28 +1044,31 @@ class Engine:
                          local_shard)
 
     def _incidence_sharded_once(self, fqb: Fqb, local_shard: bool) -> None:
-        """Sharded incidence: (hash, barcode) emissions route to the hash's
-        range owner, which holds only its slice of the retained set and
-        keys the pair with the canonical k-mer rank; pair keys route by low
-        bits to dedup owners; one more all_to_all lays the pair set out as
-        code-range forward-CSR slices (``build_sharded_incidence``)."""
+        """Sharded incidence, in the count pass's stacked steps: (hash,
+        barcode) emissions route to the hash's range owner, which holds
+        only its slice of the retained set and keys the pair with the
+        canonical k-mer rank; pair keys route by low bits to dedup owners;
+        one more all_to_all lays the pair set out as code-range forward-CSR
+        slices (``build_sharded_incidence``)."""
         cfg = self.cfg
         g = self._shard_group()
         self._check_sharded_batch(g)
         self._read_len = fqb.read_len
+        run = self._shard_schedule(fqb, local_shard)
+        n_codes = self._global_n_barcodes if local_shard else fqb.n_barcodes
         if self._ret_sh is not None:
-            rows, _, off, n_kmers = self._ret_sh
-            step = self._count_step(g, "occurrences",
+            rows, _, off, n_kmers = src = self._ret_sh
+            step = self._count_step(g, "occurrences", n_codes=n_codes,
                                     pair_retained_sharded=(rows, off, n_kmers))
         else:
-            n_kmers = int(self.retained_hashes.shape[0])
-            step = self._count_step(g, "occurrences",
-                                    pair_retained=self.retained_hashes)
+            src = self.retained_hashes
+            n_kmers = int(src.shape[0])
+            step = self._count_step(g, "occurrences", n_codes=n_codes,
+                                    pair_retained=src)
         dt = self._sharded_table_for(g, step, routing="low")
         # group tags do not matter here: the pair table dedups globally
-        for codes, ln, bc, _ in self._sharded_batches(fqb, local_shard):
-            self.stats["dispatches"] += 1
-            dt = step(dt, codes, ln, bc)
+        for grp, _ in self._step_groups(run[3], False):
+            self._shard_step(run, step, dt, grp, src)
         dt = step.finish(dt)
         drops = DS.host_sum(g, dt.drops)
         if drops:
@@ -1042,7 +1078,6 @@ class Engine:
                     cfg.batch_reads, fqb.read_len))
         if DS.host_sum(g, dt.sketch_over):
             self._raise_overflow("incidence")
-        n_codes = self._global_n_barcodes if local_shard else fqb.n_barcodes
         self._set_inc_sh(SI.build_sharded_incidence(dt, n_kmers, n_codes))
         self.timer.stage(f"incidence[sharded x{cfg.n_shards}]: "
                          f"{self._inc_sh.n_pairs} pairs, {n_codes} codes x "

@@ -23,19 +23,29 @@ Keyings (``StepSpec.keying``):
 * ``"join"``: the incidence pass, ``barcode * n_kmers + rank`` of the hash
   in the retained set (``table.incidence.pair_keys``).
 
-On CUDA each ``StepSpec`` is captured once into a CUDA graph, after one
-warm-up call on a side stream, and each step is one replay of it: the host
-copies the (offset, m) pairs into the graph's static input and replays.
-The graph holds the lane's and, for ``"join"``, the retained set's
-addresses, so ``LaneSteps`` lives with the lane and captures a join step
-again when the retained set changes.  Its outputs are static tensors that
-the next replay overwrites; the caller copies them first, in stream order.
-A capture or a replay that fails raises: a step never falls back to eager
-work on the card.  On the CPU the same step runs eagerly.
+The sharded passes send the same kind of step (:func:`sharded_step`, the
+JAX package's ``scan_spans`` / ``scan_stacked``): S (offset, m) windows of
+this process's rows of S global batches, one sketch launch, then
+``dist.sharded_sorted.SortedCountStep.stacked`` routes and reduces every
+(local shard, batch) row on its own.
+
+On CUDA each step shape (a ``StepSpec``, or ``SortedCountStep.graph_key``
+for a sharded step of one process) is captured once into a CUDA graph,
+after one warm-up call on a side stream, and each step is one replay of it:
+the host copies the (offset, m) pairs into the graph's static input and
+replays.  The graph holds the lane's and, for ``"join"`` and the sharded
+pair step, the retained set's addresses, so ``LaneSteps`` lives with the
+lane and captures such a step again when the retained set changes.  Its
+outputs are static tensors that the next replay overwrites; the caller
+copies them first, in stream order.  A capture or a replay that fails
+raises: a step never falls back to eager work on the card.  On the CPU the
+same step runs eagerly, and so does a sharded step of several processes,
+whose exchanges cross the host.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -48,7 +58,7 @@ from .kernels import minimizer
 from .table import sorted_table as st
 from .table.incidence import pair_keys
 
-__all__ = ["StepSpec", "LaneSteps", "step", "REPLAYS"]
+__all__ = ["StepSpec", "LaneSteps", "step", "sharded_step", "REPLAYS"]
 
 REPLAYS = 0   # CUDA graph replays of steps
 
@@ -111,62 +121,133 @@ def step(ss: StepSpec, lane, om: torch.Tensor, retained=None):
                               flat_bc.reshape(-1), ss.n_kmers)
         keys, wts, o = st.dedup_weighted_segmented(
             keyed.reshape(ss.S, -1), ss.slots, ss.key_bits)
-    return keys, wts, over.sum(dtype=torch.int64) + o
+    return keys, wts, over.sum(dtype=torch.int64) + o.sum()
+
+
+def sharded_step(cs, lane, om: torch.Tensor, bsz: int, read_len: int):
+    """One stacked sharded step (the JAX package's ``scan_spans`` /
+    ``scan_stacked``): the (2, S) row windows ``om`` of ``bsz`` rows each
+    (this process's rows of S global batches) through
+    ``SortedCountStep.stacked`` of ``cs``."""
+    codes, ln, bc = _gather(lane, om, bsz, read_len)
+    return cs.stacked(codes, ln, bc, om.shape[1])
+
+
+# One capture stream and one graph memory pool per CUDA device, shared by
+# every lane's graphs: the caching allocator reuses a block only on the
+# stream and in the pool it came from, so graphs captured on streams or
+# pools of their own would never reuse each other's intermediates, nor the
+# memory of a dropped engine's graphs, and every new engine would reserve
+# its graphs' memory anew.  Sharing is safe because every step replays on
+# the current stream, one at a time, and a graph's intermediates are dead
+# between its replays.  It has one cost: a later capture may place its
+# outputs in an earlier graph's intermediates, so a graph's outputs are
+# valid only until the next replay of any graph on the device, of any
+# engine.  Every caller consumes them in stream order before that.
+_CAPTURE = {}
+
+
+def _capture_resources(dev):
+    """(stream, pool) of the device, made on first use.  A one-op graph
+    captured into the pool and kept with it holds the pool open: the
+    allocator releases a pool whose graphs have all gone, and a capture
+    into a released pool's handle fails."""
+    if dev not in _CAPTURE:
+        stream = torch.cuda.Stream(dev)
+        pool = torch.cuda.graph_pool_handle()
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            x = torch.zeros(1, device=dev)
+            anchor = torch.cuda.CUDAGraph()
+            anchor.capture_begin(pool=pool)
+            x.add_(1)
+            anchor.capture_end()
+        torch.cuda.synchronize(dev)
+        _CAPTURE[dev] = (stream, pool, anchor, x)
+    return _CAPTURE[dev][:2]
 
 
 class LaneSteps:
-    """The steps of one device lane: on CUDA a captured graph per
-    ``StepSpec`` (all in one memory pool: they replay one at a time, in
-    stream order), on the CPU the eager step."""
+    """The steps of one device lane: on CUDA a captured graph per step
+    shape (replayed one at a time, on the current stream), on the CPU the
+    eager step.  A replay's outputs are valid only until the next replay of
+    any graph on the device, of this or any other engine (the graphs share
+    one memory pool): consume them in stream order first."""
 
     def __init__(self, lane):
         self.lane = lane
         self.device = lane[1].device
         self._graphs = {}
-        self._pool = None
 
     def __call__(self, ss: StepSpec, om: np.ndarray, retained=None):
         """Run the step ``ss`` on the (2, S) int64 offsets and m's ``om``."""
+        return self._run(ss, functools.partial(step, ss, self.lane,
+                                               retained=retained), om,
+                         retained)
+
+    def sharded(self, cs, om: np.ndarray, bsz: int, read_len: int,
+                src=None):
+        """Run :func:`sharded_step` of ``cs``, a ``SortedCountStep`` of a
+        one-process group, on the (2, S) int64 offsets and m's ``om``.
+        ``src`` is the retained band a pair step keys with: its graph holds
+        the band's rows, and a new ``src`` captures the step again."""
+        if cs.group.world != 1:
+            raise ValueError("a multi-process step exchanges through the "
+                             "host: run sharded_step eagerly")
+        return self._run(cs.graph_key(om.shape[1], bsz, read_len),
+                         functools.partial(sharded_step, cs, self.lane,
+                                           bsz=bsz, read_len=read_len), om,
+                         src)
+
+    def _run(self, key, fn, om: np.ndarray, src):
+        """``fn(om)``: eagerly on the CPU; on CUDA the replay of its graph,
+        captured on first use and again for a new ``src`` (then the graphs
+        of the old retained band go: no later step keys with it).  ``fn``
+        holds no reference to this object, so an engine that drops its
+        lane frees the graphs' memory at once."""
         if self.device.type != "cuda":
-            return step(ss, self.lane, torch.from_numpy(om).to(self.device),
-                        retained)
-        g = self._graphs.get(ss)
-        if g is None or g.retained is not retained:
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            g = self._graphs[ss] = _StepGraph(ss, self.lane, retained,
-                                              self._pool)
+            return fn(torch.from_numpy(om).to(self.device))
+        g = self._graphs.get(key)
+        if g is None or g.src is not src:
+            if src is not None:
+                self._graphs = {k: h for k, h in self._graphs.items()
+                                if h.src is None or h.src is src}
+            g = self._graphs[key] = _StepGraph(fn, om.shape[1], self.device,
+                                               src)
         return g.replay(om)
 
 
 class _StepGraph:
-    """One step captured into a CUDA graph: a static (2, S) input and the
-    static outputs of its one capture."""
+    """One step ``fn(om)`` captured into a CUDA graph: a static (2, S)
+    input and the static outputs of its one capture.  It keeps ``fn``, and
+    so the tensors the graph reads, alive."""
 
-    def __init__(self, ss: StepSpec, lane, retained, pool):
-        dev = lane[1].device
+    def __init__(self, fn, S: int, dev, src):
         minimizer.build()   # load the kernel library outside the capture
-        self.retained = retained
-        self.om = torch.zeros((2, ss.S), dtype=torch.int64, device=dev)
+        self.fn, self.src = fn, src
+        self.om = torch.zeros((2, S), dtype=torch.int64, device=dev)
         cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
+        side, pool = _capture_resources(dev)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             # warm-up (all batches empty): lazy initialisation and the
             # kernel module's load happen here, not under capture
-            step(ss, lane, self.om, retained)
+            fn(self.om)
             torch.cuda.synchronize(dev)
             self.graph = torch.cuda.CUDAGraph()
             n0 = minimizer.CAPTURED
             self.graph.capture_begin(pool=pool)
             try:
-                self.out = step(ss, lane, self.om, retained)
+                self.out = fn(self.om)
             finally:
                 self.graph.capture_end()
         cur.wait_stream(side)
         self.launches = minimizer.CAPTURED - n0
 
     def replay(self, om: np.ndarray):
+        """Replay on the current stream with the (2, S) input ``om``.  The
+        static outputs it returns hold until the next replay of any graph
+        on the device (one shared pool, see ``_CAPTURE``)."""
         global REPLAYS
         self.om.copy_(torch.from_numpy(om), non_blocking=True)
         self.graph.replay()

@@ -149,14 +149,14 @@ def _take_slots(keys: torch.Tensor, weights: torch.Tensor, keep: torch.Tensor,
     """Stable compaction of the kept entries into ``slots`` slots per row
     (``row``: each entry's row of S, non-decreasing, values >= S only past
     the last row; None for one row), pads after, and the exact number of
-    kept entries that did not fit (a device scalar, so the caller's loop
-    never syncs)."""
+    kept entries of each row that did not fit (an (S,) device tensor, so
+    the caller's loop never syncs)."""
     c = torch.cumsum(keep.to(torch.int64), 0)
     pos = c - 1
     n_out = S * slots
     if row is None:
         dst = torch.where(keep & (pos < slots), pos, n_out)
-        overflow = torch.clamp(keep.sum() - slots, min=0)
+        overflow = torch.clamp(keep.sum() - slots, min=0).reshape(1)
     else:
         # kept entries before each row's first entry (rows are contiguous:
         # no atomics into S counters)
@@ -166,7 +166,7 @@ def _take_slots(keys: torch.Tensor, weights: torch.Tensor, keep: torch.Tensor,
         row = torch.where(keep, row, 0)
         pos = pos - before[row]
         dst = torch.where(keep & (pos < slots), row * slots + pos, n_out)
-        overflow = torch.clamp(before[1:] - before[:-1] - slots, min=0).sum()
+        overflow = torch.clamp(before[1:] - before[:-1] - slots, min=0)
     # slot n_out takes what is dropped
     out_k = torch.full((n_out + 1,), INT64_MAX, dtype=torch.int64,
                        device=keys.device)
@@ -232,15 +232,16 @@ def dedup_weighted(keyed: torch.Tensor, slots: int):
     """Reduce raw emissions ((N,) int64, ``INT64_MAX`` pads) to
     ``(keys (slots,), weights (slots,) int32, overflow)``: sort, sum equal
     keys, compact.  ``overflow`` counts distinct keys beyond ``slots``."""
-    return dedup_weighted_segmented(keyed.reshape(1, -1), slots)
+    k, w, o = dedup_weighted_segmented(keyed.reshape(1, -1), slots)
+    return k, w, o.sum()
 
 
 def dedup_weighted_segmented(keyed: torch.Tensor, slots: int,
                              key_bits: int = 63):
     """:func:`dedup_weighted` of each row of ``keyed (S, N)`` on its own, as
-    S separate calls would give it: ``(keys (S*slots,), weights, overflow)``
-    with row j's entries in slots ``[j*slots, (j+1)*slots)`` and
-    ``overflow`` the sum over rows of their distinct keys past ``slots``.
+    S separate calls would give it: ``(keys (S*slots,), weights, overflow
+    (S,))`` with row j's entries in slots ``[j*slots, (j+1)*slots)`` and
+    ``overflow[j]`` its distinct keys past ``slots``.
     Real keys lie below ``2**key_bits`` (the sort folds the row index in
     where it fits, see :func:`_fold_rows`).  No host sync and no shape that
     depends on the data: a CUDA graph can hold it."""
@@ -267,15 +268,16 @@ def dedup_pairs_weighted(flat_h: torch.Tensor, flat_bc: torch.Tensor,
     in this batch (exact across batches when batches are barcode-aligned).
     Rows with barcode < 0 are dropped.  Returns ``(keys (slots,), weights
     (slots,) int32, overflow)``."""
-    return dedup_pairs_weighted_segmented(flat_h.reshape(1, -1),
-                                          flat_bc.reshape(1, -1), slots)
+    k, w, o = dedup_pairs_weighted_segmented(flat_h.reshape(1, -1),
+                                             flat_bc.reshape(1, -1), slots)
+    return k, w, o.sum()
 
 
 def dedup_pairs_weighted_segmented(flat_h: torch.Tensor, flat_bc: torch.Tensor,
                                    slots: int, key_bits: int = 63):
     """:func:`dedup_pairs_weighted` of each row of ``flat_h``/``flat_bc``
     ``(S, N)`` on its own, laid out as :func:`dedup_weighted_segmented`
-    lays out its rows (hashes below ``2**key_bits``)."""
+    lays out its rows and its overflow (hashes below ``2**key_bits``)."""
     S, N = flat_h.shape
     h, bc = flat_h.reshape(-1), flat_bc.reshape(-1)
     folded = _fold_rows(h, S, key_bits) if S > 1 else h

@@ -3,9 +3,9 @@
 ``friend_pairs``, ``Engine.reset``, ``Engine.clusters``, and the sketch
 entry points ``sketch_minimizer``, ``sketch_minimizer_compact`` and
 ``supported``.  ``Engine.stats`` is held against the port's own step and
-flush counts (one dispatch per step of up to ``flush_batches`` batches, as
-the JAX engine counts its scan-fused dispatches; the sharded path sends one
-step per batch).  Every comparison is exact (tolerance: none)."""
+flush counts (one dispatch per step of up to ``flush_batches`` batches,
+sharded or not, as the JAX engine counts its scan-fused dispatches).  Every
+comparison is exact (tolerance: none)."""
 
 import io
 import re
@@ -236,9 +236,9 @@ def test_stats_count_batches_and_flushes(lane, monkeypatch, n_shards, batch,
     spans = eng._spans(fqb)[1]
     assert all(gid is None for *_, gid in spans)   # no oversized barcode
     n_batches = len(spans)
-    # one device step per flush_batches batches; one per batch if sharded
-    n_steps = -(-n_batches // flush_batches) if n_shards == 1 else n_batches
-    assert n_steps < n_batches or flush_batches == 1 or n_shards > 1
+    # one device step per flush_batches batches, sharded or not
+    n_steps = -(-n_batches // flush_batches)
+    assert n_steps < n_batches or flush_batches == 1
     spy = _FlushSpy(monkeypatch)
     eng.count(fqb)
     assert eng.stats == {"dispatches": n_steps, "flushes": spy.n}
