@@ -5,6 +5,9 @@ occurrence-count and checkpoint paths at full lane scale, and byte-level
 checks against the C stand-in and the CPU.
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
+(``python3 chip_smoke.py --only 23,24`` builds the kernel and runs only
+phases 23 and 24; its last line is the same JSON result, with no kernels
+line.)
 
 Phases (any failure exits non-zero):
   1. device   - the card's name and power limit (nvidia-smi) and torch's name
@@ -114,6 +117,26 @@ Phases (any failure exits non-zero):
                 dedup's extra sort under CUDA graphs; a second band
                 (min_count 3) and incidence on the same Engine capture the
                 pair graphs again; reports and dumps byte-identical
+ 23. scale    - lane20x (bench.make_barcodes_lane_blocked: 16M reads of
+                150 bp, 1M barcodes x one 30 kb molecule of a 2 Gb
+                genome, 20x the phase-4 lane) through the CLI on CUDA, one
+                GPU, --shards 4 and --shards 4 --labelBlocks 16777216
+                (>= 8 label blocks), with --hashInfo, --codeClusters,
+                --clusterSplit, --clusterReport, --writeCounts and
+                --writeClusters: stdout (table slots masked) and both
+                dumps (sha256) byte-identical across the three runs; the
+                incidence pairs equal the in-band sum of the counts dump;
+                kernel launches > 0, plain calls 0, each step one CUDA
+                graph replay; per stage the wall, peak device memory,
+                reserved memory, host RSS, flushes and table slots; the
+                generator's wall and host RSS
+ 24. stress   - the JAX package's stress lane (tests_tpu/probe_edge_stress.py:
+                synth_incidence(50_000, 400_000, 30)) through build_incidence
+                and clustering at min_friend_share 4: the default edge
+                block, 2^17-edge blocks and 4 shards with 2^17-pair label
+                blocks (>= 8 blocks each), byte-equal labels, and equal to
+                the CPU's; cold and warm walls, peak device memory, pairs,
+                friend keys, edges, rounds, each co-occurrence reduction
 The last two lines of stdout before the result are a JSON line describing
 the kernels and the card's name and power limit; the last line is the JSON
 result {"ok": true, "device": {...}}.
@@ -1856,6 +1879,350 @@ def phase_join_graphs(torch, MK, ES, tmp):
     del eng
 
 
+# -- phases 23-24: the lane at 20x its scale, the stress lane ----------------
+
+SCALE_BAND = (2, 64)
+
+
+def host_rss_gb():
+    """(current, peak) resident host memory of this process in GB."""
+    import resource
+    cur = 0.0
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                cur = int(line.split()[1]) / 1e6
+    return cur, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+class StageProbe:
+    """Per-call wall, peak device memory (``max_memory_allocated``, reset
+    at the start of each call), ``memory_reserved``, host RSS, table
+    flushes, the largest table capacity a flush left, and the walls spent
+    in the flushes and in building the lane on the device (each
+    synchronised on both sides), for the Engine's public commands while it
+    is installed (the CLI calls them, so a CLI run reports per stage
+    without a flag of its own).  A command called inside another counts in
+    the outer one."""
+
+    METHODS = ("count", "info", "filter", "incidence", "cluster", "split",
+               "report", "write_counts", "write_clusters")
+
+    def __init__(self, torch, Engine, st):
+        self.torch, self.Engine, self.st = torch, Engine, st
+        self.rows = []
+        self._saved = []
+        self._depth = 0
+        self._cap = 0
+        self._sub = {"flush": 0.0, "lane": 0.0}
+
+    def _patch(self, owner, name, fn):
+        self._saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, fn)
+
+    def _timed(self, what, real):
+        """``real`` with its synchronised wall added to ``_sub[what]``."""
+        torch = self.torch
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            self._sub[what] += time.monotonic() - t0
+            return out
+        return timed
+
+    def __enter__(self):
+        for name in self.METHODS:
+            self._patch(self.Engine, name,
+                        self._wrap(name, getattr(self.Engine, name)))
+        self._patch(self.Engine, "_lane",
+                    self._timed("lane", self.Engine._lane))
+        flush = self._timed("flush", self.st.flush_grow)
+
+        def flush_grow(t, *a, **kw):
+            out = flush(t, *a, **kw)
+            self._cap = max(self._cap, out.capacity)
+            return out
+        self._patch(self.st, "flush_grow", flush_grow)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in reversed(self._saved):
+            setattr(owner, name, real)
+
+    def _wrap(self, name, real):
+        torch, st = self.torch, self.st
+
+        def probed(eng, *a, **kw):
+            if self._depth:
+                return real(eng, *a, **kw)
+            self._depth += 1
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            f0, self._cap = st.FLUSHES, 0
+            self._sub = dict.fromkeys(self._sub, 0.0)
+            t0 = time.monotonic()
+            try:
+                return real(eng, *a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                self._depth -= 1
+                self.rows.append({
+                    "stage": name, "wall_s": wall,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+                    "rss_gb": host_rss_gb()[0],
+                    "flushes": st.FLUSHES - f0, "flush_s": self._sub["flush"],
+                    "lane_s": self._sub["lane"],
+                    "max_table_slots": self._cap})
+        return probed
+
+    def print(self, what):
+        for r in self.rows:
+            print(f"{what} stage {r['stage']}: wall {r['wall_s']:.3f} s "
+                  f"(lane setup {r['lane_s']:.3f} s), peak device memory "
+                  f"{r['peak_gb']:.2f} GB, reserved {r['reserved_gb']:.2f} "
+                  f"GB, host RSS {r['rss_gb']:.2f} GB, flushes "
+                  f"{r['flushes']} ({r['flush_s']:.3f} s), largest table "
+                  f"{r['max_table_slots']} slots", flush=True)
+
+
+def graph_pool_gb(torch):
+    """Device memory reserved in private pools (the CUDA graphs' shared
+    pool; ``torch.cuda.memory_snapshot``'s segments outside pool (0, 0))."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)) / 1e9
+
+
+def make_lane20x(tmp):
+    """The 16M-read / 1M-barcode lane (``bench.make_barcodes_lane_blocked``)
+    written as an .fqb; prints its build wall and the host RSS it took."""
+    from hash10x_tpu_torch.bench import LANE20X, make_barcodes_lane_blocked
+    from hash10x_tpu_torch.io.fqb import save_fqb
+    rss0 = host_rss_gb()
+    t0 = time.monotonic()
+    fqb = make_barcodes_lane_blocked()
+    wall = time.monotonic() - t0
+    rss1 = host_rss_gb()
+    path = os.path.join(tmp, "lane20x.fqb")
+    t0 = time.monotonic()
+    save_fqb(path, fqb)
+    print(f"lane20x: {len(fqb)} reads x {READ_LEN} bp, {fqb.n_barcodes} "
+          f"barcodes, {LANE20X[2]}-base genome; generator {wall:.3f} s, "
+          f"host RSS {rss0[0]:.2f} -> {rss1[0]:.2f} GB (process peak "
+          f"{rss0[1]:.2f} -> {rss1[1]:.2f} GB); .fqb written in "
+          f"{time.monotonic() - t0:.3f} s", flush=True)
+    return path
+
+
+def digest_and_remove(path):
+    """(sha256 hex, bytes) of a file, which is then deleted."""
+    import hashlib
+    h = hashlib.sha256()
+    n = 0
+    with open(path, "rb") as f:
+        while True:
+            block = f.read(1 << 24)
+            if not block:
+                break
+            h.update(block)
+            n += len(block)
+    os.remove(path)
+    return h.hexdigest(), n
+
+
+def band_sum_of_counts_dump(path, lo, hi):
+    """The sum of the counts in a --writeCounts dump ("hash<TAB>count"
+    lines) over the lines whose count lies in [lo, hi], parsed from the
+    file's bytes a block of lines at a time."""
+    total = 0
+    rest = b""
+    with open(path, "rb") as f:
+        while True:
+            block = f.read(1 << 26)
+            data = rest + block
+            cut = data.rfind(b"\n") + 1
+            rest = data[cut:]
+            a = np.frombuffer(data[:cut], np.uint8)
+            if len(a):
+                tabs = np.flatnonzero(a == 9)
+                width = np.flatnonzero(a == 10) - tabs - 1
+                val = np.zeros(len(tabs), np.int64)
+                for j in range(int(width.max())):
+                    more = width > j
+                    val[more] = val[more] * 10 + (a[tabs[more] + 1 + j] - 48)
+                total += int(val[(val >= lo) & (val <= hi)].sum())
+            if not block:
+                break
+    if rest:
+        fail(f"{path}: the last line has no newline")
+    return total
+
+
+LANE20X_RUNS = (("one GPU", []), ("--shards 4", ["--shards", "4"]),
+                ("--shards 4 --labelBlocks", ["--shards", "4",
+                                              "--labelBlocks",
+                                              str(1 << 24)]))
+
+
+def phase_scale(torch, MK, ES, run, tmp):
+    """Phase 23: the lane20x through the CLI on CUDA, one GPU, --shards 4
+    and --shards 4 --labelBlocks 16,777,216 (at least 8 label blocks):
+    stdout (table slots masked) and both dumps byte-identical across the
+    three runs; the incidence pairs equal the in-band sum of the counts
+    dump; every batch through the kernel, each step one CUDA graph replay;
+    per stage (StageProbe) wall, peak device memory, reserved memory,
+    host RSS, flushes and table slots."""
+    import gc
+    from hash10x_tpu_torch.cluster import sparse as SP
+    from hash10x_tpu_torch.cluster import sparse_dist as SPD
+    from hash10x_tpu_torch.engine import Engine
+    from hash10x_tpu_torch.table import sorted_table as st
+    lane = make_lane20x(tmp)
+    first = None
+    one_gpu_launches = 0
+    for what, flags in LANE20X_RUNS:
+        dumps = [os.path.join(tmp, f"lane20x.{x}")
+                 for x in ("counts", "clusters")]
+        argv = ["-k", str(K), "-w", str(W), "-r", str(SEED), "-B", "22",
+                "--minCount", str(SCALE_BAND[0]), "--maxCount",
+                str(SCALE_BAND[1]), "--friendShare", "8", *flags,
+                "--readFQB", lane, "--hashInfo", "--codeClusters",
+                "--clusterSplit", "--clusterReport", "--writeCounts",
+                dumps[0], "--writeClusters", dumps[1]]
+        ES.REPLAYS = 0
+        with StageProbe(torch, Engine, st) as probe:
+            out, err, eng, launches, wall = run_counted(torch, MK, run, argv)
+        n_batches = len(eng._lane_cache[3])
+        steps, replays, graphs = check_replays(f"lane20x {what}", eng, ES,
+                                               launches, 2 * n_batches)
+        cstats = dict((SPD if flags else SP).STATS)
+        pairs = eng.inc.n_pairs
+        pool_gb = graph_pool_gb(torch)
+        peak_rss = host_rss_gb()[1]
+        if first is None:
+            band = band_sum_of_counts_dump(dumps[0], *SCALE_BAND)
+            if band != pairs:
+                fail(f"lane20x: {pairs} incidence pairs != {band}, the "
+                     "in-band sum of the counts dump")
+            print(f"lane20x: incidence pairs {pairs} = the sum of the "
+                  f"counts dump over the band {list(SCALE_BAND)}")
+        t0 = time.monotonic()
+        sums = [digest_and_remove(d) for d in dumps]
+        hash_s = time.monotonic() - t0
+        if "--labelBlocks" in flags and cstats.get("label_blocks", 0) < 8:
+            fail(f"lane20x {what}: {cstats.get('label_blocks')} label "
+                 "blocks (< 8)")
+        probe.print(f"lane20x {what}")
+        print(f"lane20x {what}: CLI wall {wall:.3f} s (includes the .fqb "
+              f"load and the dumps); {steps} steps over {n_batches} "
+              f"batches per pass, {replays} replays of {graphs} graphs, "
+              f"kernel launches {launches}, plain calls 0; flushes "
+              f"{eng.stats['flushes']}; count table "
+              f"{eng.table.capacity} slots, {eng.table.n_filled} kmers; "
+              f"{pairs} incidence pairs; {molecules(err)} molecules; "
+              "cluster: " + ", ".join(f"{k} {v}" for k, v in
+                                      cstats.items())
+              + f"; dumps {sums[0][1]} + {sums[1][1]} bytes, hashed in "
+              f"{hash_s:.3f} s; graph pool reserved {pool_gb:.2f} GB; host "
+              f"RSS peak {peak_rss:.2f} GB (the process's so far)",
+              flush=True)
+        print("\n".join(f"lane20x {what} stage {line}"
+                        for line in stage_lines(err)))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        if first is None:
+            first = (masked(out), sums)
+            one_gpu_launches = launches
+            continue
+        if masked(out) != first[0]:
+            fail(f"lane20x {what}: stdout != the one-GPU run's")
+        if [x[0] for x in sums] != [x[0] for x in first[1]]:
+            fail(f"lane20x {what}: counts or clusters dump != the one-GPU "
+                 "run's")
+        print(f"lane20x {what}: stdout ({out.count(chr(10))} lines), counts "
+              "and clusters dumps byte-identical to the one-GPU run",
+              flush=True)
+    return one_gpu_launches
+
+
+def phase_stress(torch, MK, device="cuda"):
+    """Phase 24: the JAX package's stress lane
+    (``tests_tpu/probe_edge_stress.py``: ``synth_incidence(50_000, 400_000,
+    30)``, seed 5) through ``build_incidence`` and clustering at
+    min_friend_share 4 on CUDA: ``cluster_codes_sparse`` with the default
+    edge block and with 2^17-edge blocks (at least 8 blocks), and
+    ``cluster_codes_sparse_dist`` at 4 shards with label blocks of 2^17
+    pairs (at least 8); the three label arrays and the CPU's byte-equal.
+    Cold and warm walls, peak device memory, pairs, friend keys, edges,
+    rounds and the wall of each co-occurrence reduction."""
+    from hash10x_tpu_torch.bench import synth_incidence
+    from hash10x_tpu_torch.cluster import sparse as SP
+    from hash10x_tpu_torch.cluster import sparse_dist as SPD
+    from hash10x_tpu_torch.dist.group import ShardGroup
+    from hash10x_tpu_torch.table.incidence import build_incidence
+    ks, cs = synth_incidence(50_000, 400_000, 30)
+    t0 = time.monotonic()
+    inc = build_incidence(ks, cs, 400_000, 50_000, device)
+    torch.cuda.synchronize()
+    print(f"stress: {inc.n_pairs} pairs, build_incidence "
+          f"{time.monotonic() - t0:.3f} s", flush=True)
+    runs = {}
+    for name, fn, stats, key in (
+            ("default edge block", lambda: SP.cluster_codes_sparse(inc, 4),
+             SP.STATS, "edge_blocks"),
+            ("edge_block 2^17", lambda: SP.cluster_codes_sparse(
+                inc, 4, edge_block=1 << 17), SP.STATS, "edge_blocks"),
+            ("4 shards, label blocks 2^17",
+             lambda: SPD.cluster_codes_sparse_dist(
+                 inc, ShardGroup.of_process(4, device), min_friend_share=4,
+                 flat=True, label_block_pairs=1 << 17), SPD.STATS,
+             "label_blocks")):
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            lab = fn()
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+        runs[name] = lab.cpu().numpy().tobytes()
+        if name != "default edge block" and stats[key] < 8:
+            fail(f"stress {name}: {stats[key]} blocks (< 8)")
+        print(f"stress {name}: cold {walls[0]:.4f} s, warm {walls[1]:.4f} "
+              f"s, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
+              + ", ".join(f"{k} {v}" for k, v in stats.items()), flush=True)
+    t0 = time.monotonic()
+    cpu = SP.cluster_codes_sparse(
+        build_incidence(ks, cs, 400_000, 50_000, "cpu"), 4)
+    cpu_s = time.monotonic() - t0
+    if any(r != runs["default edge block"] for r in runs.values()) \
+            or cpu.numpy().tobytes() != runs["default edge block"]:
+        fail("stress: the label arrays differ")
+    print(f"stress: labels ({inc.n_pairs} int64) byte-equal across the "
+          f"default edge block, 2^17-edge blocks, 4 shards with label "
+          f"blocks and the CPU (incidence + clustering on the CPU "
+          f"{cpu_s:.3f} s)", flush=True)
+
+
+def run_only(torch, MK, ES, run, only):
+    """``--only 23,24``: after the build, only the phases named."""
+    with tempfile.TemporaryDirectory() as tmp:
+        if 23 in only:
+            phase_scale(torch, MK, ES, run, tmp)
+        if 24 in only:
+            phase_stress(torch, MK)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1871,6 +2238,10 @@ def main() -> int:
 
     smi = phase_device(torch)
     t_start = time.monotonic()
+    only = set()
+    if "--only" in sys.argv:
+        only = {int(x) for x in
+                sys.argv[sys.argv.index("--only") + 1].split(",")}
 
     def elapsed(what):
         print(f"elapsed after {what}: {time.monotonic() - t_start:.1f} s")
@@ -1884,6 +2255,8 @@ def main() -> int:
                            syncmer_s=kw.get("syncmer_s", 0))
         return Engine(cfg, "cuda", log=None)._compact_rows(
             READ_LEN - spec.k + 1)
+    if only:
+        return run_only(torch, MK, ES, run, only)
     compact_rows = compact_rows_of(HashSpec(k=K, w=W, seed=SEED))
     max_err, *main_times = phase_parity(torch, MK, HashSpec, compact_rows)
     modes, err_w = phase_mode_parity(torch, MK, HashSpec, compact_rows_of)
@@ -1934,6 +2307,10 @@ def main() -> int:
         elapsed("phase 21")
         phase_join_graphs(torch, MK, ES, tmp)
         elapsed("phase 22")
+        scale_launches = phase_scale(torch, MK, ES, run, tmp)
+        elapsed("phase 23")
+        phase_stress(torch, MK)
+        elapsed("phase 24")
 
     kernels = [kernel_entry(
         "seqhash_sketch", launches, max(max_err, fuzz_err), *main_times,
@@ -1941,6 +2318,9 @@ def main() -> int:
     err, *times, shape = stacked
     kernels.append(kernel_entry("seqhash_sketch_stacked", launches, err,
                                 *times, shape))
+    # the same launch shape on the lane20x (phase 23's one-GPU run)
+    kernels.append(kernel_entry("seqhash_sketch_stacked_lane20x",
+                                scale_launches, err, *times, shape))
     for mode in ("modimizer", "syncmer"):  # emission :279-280 and :281-292
         err, *times, shape = modes[mode]
         kernels.append(kernel_entry(f"seqhash_sketch_{mode}",

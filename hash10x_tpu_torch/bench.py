@@ -25,7 +25,7 @@ median and [min, max] with the run count):
   synchronize, on the host clock), one 4,096-read batch's step (unpack,
   sketch kernel, dedup), the kernel alone (CUDA events) against
   ``sketch_bound``, and the flush merge of a 2^20 table and a 2^21 buffer
-  against the byte bound of its radix sort.
+  against the byte bound of the buffer's radix sort and the merge.
 * ``routing_ab_1chip``: the sharded count path at ``n_shards=1``
   (``Engine._count_sharded``) against the plain ``count``.
 * ``cluster_200k_codes``: ``cluster_codes_sparse`` on a synthesized
@@ -71,7 +71,8 @@ from .table import sorted_table as st
 from .table.incidence import build_incidence
 from .utils.timing import kernel_device_ms
 
-__all__ = ["make_lane", "make_barcodes_lane", "lane_fqb", "launch_floor_ms",
+__all__ = ["make_lane", "make_barcodes_lane", "blocked_genome",
+           "make_barcodes_lane_blocked", "lane_fqb", "launch_floor_ms",
            "bench_engine", "bench_breakdown", "bench_barcodes",
            "bench_routing_ab", "bench_cluster", "bench_shards_curve",
            "Summary", "run_plan", "main"]
@@ -141,6 +142,69 @@ def make_barcodes_lane(n_reads: int = BC_READS, n_codes: int = BC_CODES,
     offs = rng.integers(0, MOLECULE - READ_LEN, size=n_reads)
     starts = mol_starts[bc_ids] + offs
     return genome[starts[:, None] + np.arange(READ_LEN)], bc_ids
+
+
+LANE20X = (16_000_000, 1_000_000, 2_000_000_000)   # reads, barcodes, genome
+GENOME_BLOCK = 1 << 24   # bases drawn per seed of the blocked genome
+READ_CHUNK = 1 << 17     # reads gathered and packed at once
+
+
+def blocked_genome(genome_len: int, seed: int = 11) -> np.ndarray:
+    """A random genome as uint8 base codes, drawn in fixed blocks of
+    ``GENOME_BLOCK`` bases: block i is four 2-bit bases per byte of
+    ``default_rng([seed, 1, i]).bytes``, so no temporary is wider than a
+    block and the bases are a fixed function of the seed."""
+    genome = np.empty(genome_len, np.uint8)
+    for i, a in enumerate(range(0, genome_len, GENOME_BLOCK)):
+        n = min(GENOME_BLOCK, genome_len - a)
+        raw = np.frombuffer(np.random.default_rng([seed, 1, i])
+                            .bytes((n + 3) // 4), np.uint8)
+        bases = genome[a:a + n]
+        for j in range(4):
+            part = bases[j::4]
+            np.bitwise_and(raw[:len(part)] >> (2 * j), 3, out=part)
+    return genome
+
+
+def make_barcodes_lane_blocked(n_reads: int = LANE20X[0],
+                               n_codes: int = LANE20X[1],
+                               genome_len: int = LANE20X[2], seed: int = 11,
+                               chunk: int = READ_CHUNK) -> Fqb:
+    """The bench lane's shape at any scale, built a block at a time: each
+    of ``n_codes`` barcodes is one 30 kb molecule of a
+    :func:`blocked_genome` with ``n_reads / n_codes`` 150 bp reads drawn
+    inside it; reads come sorted by barcode.  Reads are gathered and 2-bit
+    packed ``chunk`` at a time (a memory bound only: the output does not
+    depend on it), so host memory holds the genome, the packed lane and
+    one chunk.  Its random stream is not ``make_barcodes_lane``'s."""
+    if n_reads % n_codes:
+        raise ValueError("n_reads must be a multiple of n_codes")
+    genome = blocked_genome(genome_len, seed)
+    rng = np.random.default_rng([seed, 0])
+    mol_starts = rng.integers(0, genome_len - MOLECULE, size=n_codes)
+    offs = rng.integers(0, MOLECULE - READ_LEN, size=n_reads,
+                        dtype=np.int32)
+    bc_ids = np.repeat(np.arange(n_codes, dtype=np.int32),
+                       n_reads // n_codes)
+    words = (READ_LEN + 15) // 16
+    packed = np.empty((n_reads, words), np.uint32)
+    windows = np.lib.stride_tricks.sliding_window_view(genome, READ_LEN)
+    padded = np.zeros((chunk, 16 * words), np.uint8)
+    for a in range(0, n_reads, chunk):
+        b = min(a + chunk, n_reads)
+        starts = mol_starts[bc_ids[a:b]] + offs[a:b]
+        reads = padded[:b - a]
+        reads[:, :READ_LEN] = windows[starts]
+        # pack_2bit's layout (base j at bits 2j of word j // 16), four
+        # bases per byte, the bytes read as little-endian uint32 words
+        q = reads.reshape(b - a, 4 * words, 4)
+        byte = q[..., 0] | (q[..., 1] << 2) | (q[..., 2] << 4) \
+            | (q[..., 3] << 6)
+        packed[a:b] = byte.view("<u4")
+    return Fqb(packed=packed, lengths=np.full(n_reads, READ_LEN, np.int32),
+               barcode_ids=bc_ids,
+               barcode_keys=np.arange(n_codes, dtype=np.uint32),
+               read_len=READ_LEN)
 
 
 def lane_fqb(reads: np.ndarray, bc_ids=None, n_codes: int = 1) -> Fqb:
@@ -355,23 +419,28 @@ def bench_breakdown(reads: np.ndarray, device: torch.device,
     st.flush_grow(t)
     flush = spread([timed(device, lambda: st.flush_grow(t)) * 1e3
                     for _ in range(runs)])
-    # flush_grow sorts the table's filled keys and the buffer once
-    # (torch.sort: int64 keys and an int64 index payload); its run sums
-    # (unique_consecutive, cumsum) sort nothing.  CUB's radix sort makes
-    # 64 / RADIX_BITS digit passes, each reading and writing every key and
-    # payload once.
-    n_el = cap // 2 + bufc
+    # flush_grow sorts the buffer once (torch.sort: int64 keys and an
+    # int64 index payload; CUB's radix sort makes 64 / RADIX_BITS digit
+    # passes, each reading and writing every key and payload once), then
+    # merges it into the sorted table: the table's n and the buffer's keys
+    # (8 B) and counts (4 B) read once and the merged table written once
+    # (the buffer's random keys are distinct)
+    n_el = bufc
+    n = cap // 2
     passes = 64 // RADIX_BITS
     sort_bytes = 1 * passes * n_el * (8 + 8) * 2
-    flush_bound_ms = sort_bytes / MK.HBM_BYTES_PER_S * 1e3
+    merge_bytes = (n + bufc) * (8 + 4) * 2
+    flush_bound_ms = (sort_bytes + merge_bytes) / MK.HBM_BYTES_PER_S * 1e3
     point.update(
         flush_merge_ms=flush,
         flush_sorted_elements=n_el, flush_sorts=1, flush_digit_passes=passes,
+        flush_merge_bytes=merge_bytes,
         flush_bound_ms=flush_bound_ms, flush_bound_by="bytes",
         flush_bound_share=flush_bound_ms / flush["median"],
         flush_bound_model=(
-            f"1 sort per flush x {passes} digit passes x {n_el} elements x "
-            "(8 B key + 8 B index payload) x 2 (read and write) / "
+            f"(1 sort of the buffer x {passes} digit passes x {n_el} "
+            "elements x (8 B key + 8 B index payload) x 2 (read and write) "
+            f"+ merge ({n} table + {bufc} buffer entries x 12 B x 2)) / "
             f"{MK.HBM_BYTES_PER_S / 1e12:.2f} TB/s"))
     return point
 

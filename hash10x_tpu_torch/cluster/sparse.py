@@ -31,6 +31,8 @@ the JAX package's sort-only joins were TPU workarounds.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 from ..table.incidence import Incidence
@@ -38,13 +40,21 @@ from ..table.sorted_table import segment_sum_sorted
 from ..utils.dense import device_dense_ranks, distinct_below
 
 __all__ = ["cooccurrence_counts", "friend_pairs", "friend_keys",
-           "propagate_labels", "canonical_ranks", "cluster_codes_sparse"]
+           "propagate_labels", "canonical_ranks", "cluster_codes_sparse",
+           "STATS"]
 
 # co-occurrence keys held before a reduction (bounds enumeration memory)
 _CHUNK = 1 << 25
 # edges per scatter in one propagation round (bounds per-launch temporaries)
 _EDGE_BLOCK = 1 << 25
 _BIG = (1 << 62)
+
+# host figures of the last clustering, read by callers that report them:
+# co-occurrence keys ("cooccur_keys") and the wall of each of their
+# reductions ("reduce_s"), friend keys in both orders ("friend_keys"),
+# edges ("edges"), their blocks ("edge_blocks") and propagation rounds
+# ("rounds")
+STATS: dict = {}
 
 
 class _ShiftJoin:
@@ -94,10 +104,14 @@ def _cooccur(sj: _ShiftJoin, n_codes: int, chunk: int):
     keys, weights = [], []
     held = 0
 
+    walls = STATS.setdefault("reduce_s", [])
+
     def reduce():
+        t0 = time.monotonic()
         s, order = torch.sort(torch.cat(keys), stable=True)
         u, w = segment_sum_sorted(s, torch.cat(weights)[order])
         keys[:], weights[:] = [u], [w]
+        walls.append(round(time.monotonic() - t0, 4))
         return u.shape[0]
 
     for d in range(1, sj.D):
@@ -110,7 +124,7 @@ def _cooccur(sj: _ShiftJoin, n_codes: int, chunk: int):
     if not keys:
         empty = sj.codes.new_zeros(0)
         return empty, empty
-    reduce()
+    STATS["cooccur_keys"] = reduce()
     return keys[0], weights[0]
 
 
@@ -168,7 +182,10 @@ def propagate_labels(p_e: torch.Tensor, f_e: torch.Tensor, n_p: int, n_f: int,
     dev = p_e.device
     lab = torch.arange(n_p, device=dev)
     E = p_e.shape[0]
+    STATS["edges"], STATS["edge_blocks"] = E, -(-E // edge_block)
+    STATS["rounds"] = 0
     while True:
+        STATS["rounds"] += 1
         f_lab = torch.full((n_f,), _BIG, dtype=torch.int64, device=dev)
         for s in range(0, E, edge_block):
             blk = slice(s, s + edge_block)
@@ -205,11 +222,13 @@ def cluster_codes_sparse(inc: Incidence, min_friend_share: int = 8,
                          edge_block: int = _EDGE_BLOCK) -> torch.Tensor:
     """Canonical cluster labels (int64) aligned with the forward CSR:
     bit-equal to ``cluster_barcode_friend`` with no friend cap."""
+    STATS.clear()
     if inc.n_pairs == 0:
         return inc.code_kmers.new_zeros(0)
     sj = _ShiftJoin(inc)
     keys, shares = _cooccur(sj, inc.n_codes, chunk)
     fkeys = friend_keys(keys, shares, inc.n_codes, min_friend_share)
+    STATS["friend_keys"] = fkeys.shape[0]
     glob = torch.arange(inc.n_pairs, device=inc.device)
     if fkeys.shape[0]:
         p_e, f_e = _edges(sj, inc, fkeys)

@@ -46,9 +46,15 @@ from ..table.incidence import Incidence
 from .sparse import _BIG, _forward_positions, canonical_ranks
 
 __all__ = ["cluster_codes_sparse_dist", "cooccurrence_counts_dist",
-           "friend_keys_dist"]
+           "friend_keys_dist", "STATS"]
 
 _CHUNK = 1 << 20
+
+# host figures of the last clustering, read by callers that report them:
+# friend keys in both orders ("friend_keys"), this process's edges
+# ("edges"), label blocks ("label_blocks") and propagation rounds summed
+# over them ("rounds")
+STATS: dict = {}
 
 
 def _pow2(n: int) -> int:
@@ -320,6 +326,7 @@ def _propagate(group: ShardGroup, p_parts, f_parts, n_p: int, n_f: int
     lab = torch.arange(n_p, device=dev)
     one = torch.ones((1, 1), dtype=torch.int64, device=dev)
     while True:
+        STATS["rounds"] = STATS.get("rounds", 0) + 1
         part_f = torch.stack([
             torch.full((n_f,), _BIG, dtype=torch.int64, device=dev)
             .scatter_reduce_(0, f, lab[p], "amin")
@@ -368,7 +375,9 @@ def _propagate_blocks(inc, group: ShardGroup, edges, n_f: int, target: int,
                 for k in inc.keys]
     else:
         glob = torch.empty(inc.n_pairs, dtype=torch.int64, device=dev)
-    for p0, p1 in _label_blocks(offs, inc.n_pairs, target):
+    blocks = _label_blocks(offs, inc.n_pairs, target)
+    STATS["label_blocks"] = len(blocks)
+    for p0, p1 in blocks:
         p_parts, f_parts = [], []
         for e in edges:
             lo, hi = torch.searchsorted(e, torch.tensor(
@@ -402,10 +411,12 @@ def cluster_codes_sparse_dist(inc, group: ShardGroup,
     ShardedIncidence (with ``flat``: :class:`ShardedLabels`, shard-resident).
     ``label_block_pairs > 0`` propagates in barcode-aligned blocks of about
     that many pairs."""
+    STATS.clear()
     if isinstance(inc, ShardedIncidence) and not flat:
         inc = inc.to_host()
     sharded = isinstance(inc, ShardedIncidence)
     fkeys = friend_keys_dist(inc, group, min_friend_share, chunk=chunk)
+    STATS["friend_keys"] = fkeys.shape[0]
     dev = group.device
     if fkeys.shape[0] == 0 or inc.n_pairs == 0:
         if sharded:   # every pair its own cluster
@@ -417,6 +428,7 @@ def cluster_codes_sparse_dist(inc, group: ShardGroup,
     else:
         sj = _shift_join_of(inc, group, chunk, with_positions=True)
         edges = _edge_tables(sj, group, fkeys, inc.n_codes, inc.n_pairs)
+        STATS["edges"] = sum(e.shape[0] for e in edges)
         n_f = fkeys.shape[0]
         if label_block_pairs:
             lab = _propagate_blocks(inc, group, edges, n_f,

@@ -72,6 +72,7 @@ from .table.incidence import (Incidence, combined_key_bits,
                               finalize_combined_pairs,
                               incidence_from_sorted_pairs)
 from .utils.dense import device_unique
+from .utils.text import write_report, write_rows
 from .utils.timing import StageTimer
 
 __all__ = ["Engine", "EngineConfig", "coverage_peaks"]
@@ -757,27 +758,24 @@ class Engine:
             self._mol_cache = (uniq, sizes, K)
         uniq, sizes, K = self._mol_cache
         n_clusters = torch.bincount(uniq // K, minlength=inc.n_codes)
-        _write_report_lines(out, inc.n_codes,
-                            torch.diff(inc.code_offsets).tolist(),
-                            n_clusters.tolist(), sizes.tolist())
+        write_report(out, torch.diff(inc.code_offsets), n_clusters, sizes)
         self.timer.stage(f"report: {inc.n_codes} codes")
 
     def write_counts(self, out=sys.stdout) -> None:
         """Dump the full (hash, count) table as text, hash-ascending."""
         h, c = st.compact(self._flushed())
-        out.write("".join(f"{hv:x}\t{cv}\n"
-                          for hv, cv in zip(h.tolist(), c.tolist())))
+        write_rows(out, [("x", h), b"\t", ("d", c), b"\n"], h.shape[0],
+                   h.device)
 
     def write_clusters(self, out=sys.stdout) -> None:
         """Dump cluster assignments: one line per (code, kmer hash, cluster)."""
         if self.cluster_labels is None:
             raise RuntimeError("write_clusters requires clusters")
         inc = self.inc
-        hashes = self.retained_hashes[inc.code_kmers]
-        out.write("".join(
-            f"{c}\t{h:x}\t{l}\n" for c, h, l in
-            zip(inc.code_of_pair().tolist(), hashes.tolist(),
-                self.cluster_labels.tolist())))
+        write_rows(out, [("d", inc.code_of_pair()), b"\t",
+                         ("x", self.retained_hashes[inc.code_kmers]), b"\t",
+                         ("d", self.cluster_labels), b"\n"], inc.n_pairs,
+                   inc.device)
 
     # -- sharded paths (n_shards > 1) ------------------------------------------
 
@@ -1099,10 +1097,12 @@ class Engine:
         O(codes + molecules) reach the host, never the pairs."""
         inc_sh = self._inc_sh
         codes_m, _, sizes = self._labels_sh.molecule_stats(inc_sh)
-        n_clusters = np.bincount(codes_m, minlength=inc_sh.n_codes)
-        _write_report_lines(out, inc_sh.n_codes,
-                            np.diff(inc_sh.code_offsets).tolist(),
-                            n_clusters.tolist(), sizes.tolist())
+        write_report(out, *(torch.from_numpy(np.asarray(a, np.int64))
+                            .to(self.device) for a in (
+                                np.diff(inc_sh.code_offsets),
+                                np.bincount(codes_m,
+                                            minlength=inc_sh.n_codes),
+                                sizes)))
         self.timer.stage(f"report: {inc_sh.n_codes} codes")
 
     # -- checkpoint / resume ---------------------------------------------------
@@ -1180,15 +1180,3 @@ class Engine:
                          + (", clusters" if self.cluster_labels is not None
                             else ""))
 
-
-def _write_report_lines(out, n_codes, n_kmers_per_code, n_clusters,
-                        cluster_sizes) -> None:
-    """The report text, streamed in bounded chunks of codes."""
-    cl_starts = [0] + np.cumsum(n_clusters, dtype=np.int64).tolist()
-    CHUNK = 1 << 16
-    for c0 in range(0, n_codes, CHUNK):
-        c1 = min(c0 + CHUNK, n_codes)
-        out.write("".join(
-            f"code {c} nKmers {n_kmers_per_code[c]} nClusters {n_clusters[c]} "
-            f"sizes {','.join(map(str, cluster_sizes[cl_starts[c]:cl_starts[c + 1]]))}\n"
-            for c in range(c0, c1)))

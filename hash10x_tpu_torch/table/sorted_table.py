@@ -9,10 +9,11 @@
   distinct keys only.
 * ``append``/``append_pairs`` write the buffer; when it would overflow, the
   table flushes first.
-* ``flush_grow`` sorts (table ++ buffer), sums the weights of equal keys and
-  re-homes the table at the power-of-two capacity that keeps occupancy under
-  ``load``: it never spills.  The real-key count is read back at every flush
-  (one device sync) and kept exact in ``n_filled``.
+* ``flush_grow`` sorts the buffer, sums the weights of equal keys, merges
+  them into the sorted table and re-homes it at the power-of-two capacity
+  that keeps occupancy under ``load``: it never spills.  The real-key
+  count is read back at every flush (one device sync) and kept exact in
+  ``n_filled``.
 * ``merge_counts`` merges outside (key, count) pairs the same way;
   ``prune`` and ``prune_rescue`` drop the error band (``Engine.error_fix``).
 * ``FLUSHES`` counts the sort-merges (``flush_grow`` calls with a non-empty
@@ -79,26 +80,52 @@ def segment_sum_sorted(s: torch.Tensor, w: torch.Tensor
 
 
 def flush_grow(t: SortedTable, load: float = 0.6) -> SortedTable:
-    """Merge the buffer into the table: sort, sum equal keys, and grow the
-    capacity (doubling) until the fill is at most ``load`` of it."""
+    """Merge the buffer into the table: sort and reduce the buffer alone,
+    add its counts to the keys the table holds, and merge its new keys in
+    by position (the table is already sorted, so it is never sorted
+    again); the capacity grows (doubling) until the fill is at most
+    ``load`` of it.  When the table grows, its append buffer grows to an
+    eighth of its capacity, so a table of n keys takes O(log n) flushes,
+    each O(n) work plus the sort of one buffer."""
     global FLUSHES
     if t.buf_n == 0:
         return t
     FLUSHES += 1
-    all_h = torch.cat([t.hashes[:t.n_filled], t.buf[:t.buf_n]])
-    all_w = torch.cat([t.counts[:t.n_filled], t.bufw[:t.buf_n]])
-    all_h, order = torch.sort(all_h, stable=True)
-    uh, uw = segment_sum_sorted(all_h, all_w[order])
-    n = uh.shape[0]
+    dev = t.hashes.device
+    bk, order = torch.sort(t.buf[:t.buf_n])
+    bk, bw = segment_sum_sorted(bk, t.bufw[:t.buf_n][order])
+    del order
+    n_old = t.n_filled
+    th = t.hashes[:n_old]
+    at = torch.searchsorted(th, bk)   # insertion points, ascending
+    found = th[at.clamp(max=max(n_old - 1, 0))] == bk if n_old else \
+        torch.zeros_like(bk, dtype=torch.bool)
+    old_counts = t.counts[:n_old].clone()
+    old_counts.index_add_(0, at[found], bw[found].to(torch.int32))
+    new = ~found
+    nk, nw, n_at = bk[new], bw[new], at[new]
+    n = n_old + nk.shape[0]
     cap = t.capacity
     while n > load * cap:
         cap *= 2
-    hashes = torch.full((cap,), INT64_MAX, dtype=torch.int64,
-                        device=t.hashes.device)
-    counts = torch.zeros(cap, dtype=torch.int32, device=t.hashes.device)
-    hashes[:n] = uh
-    counts[:n] = uw.to(torch.int32)
-    return SortedTable(hashes, counts, t.buf, t.bufw, 0, n)
+    buf, bufw = t.buf, t.bufw
+    if cap > t.capacity and cap // 8 > buf.shape[0]:
+        buf = torch.full((cap // 8,), INT64_MAX, dtype=torch.int64,
+                         device=dev)
+        bufw = torch.zeros(cap // 8, dtype=torch.int32, device=dev)
+    hashes = torch.full((cap,), INT64_MAX, dtype=torch.int64, device=dev)
+    counts = torch.zeros(cap, dtype=torch.int32, device=dev)
+    # a new key lands after the old keys below it and the new keys before
+    # it; an old key after the new keys inserted at or before its position
+    before = torch.cumsum(torch.bincount(n_at, minlength=n_old + 1), 0)
+    pos = torch.arange(n_old, device=dev) + before[:n_old]
+    hashes[pos] = th
+    counts[pos] = old_counts
+    del pos, before, old_counts
+    pos = n_at + torch.arange(nk.shape[0], device=dev)
+    hashes[pos] = nk
+    counts[pos] = nw.to(torch.int32)
+    return SortedTable(hashes, counts, buf, bufw, 0, n)
 
 
 def merge_counts(t: SortedTable, other_h: torch.Tensor,

@@ -93,10 +93,13 @@ def test_breakdown_point(points):
     assert p["kernel_only_ms_per_batch"] is None
     assert p["compact_to"] == 64 and p["kernel_bound_by"] in ("bytes",
                                                               "operations")
-    assert p["flush_sorted_elements"] == (1 << 9) + (1 << 11)
+    # the flush sorts the buffer and merges it into the half-full table
+    assert p["flush_sorted_elements"] == 1 << 11
     assert p["flush_sorts"] == 1 and p["flush_digit_passes"] == 8
+    assert p["flush_merge_bytes"] == ((1 << 9) + (1 << 11)) * 12 * 2
     assert p["flush_bound_ms"] == pytest.approx(
-        8 * ((1 << 9) + (1 << 11)) * 16 * 2 / 3.35e12 * 1e3)
+        (8 * (1 << 11) * 16 * 2 + ((1 << 9) + (1 << 11)) * 12 * 2)
+        / 3.35e12 * 1e3)
 
 
 def test_barcodes_point(points):
