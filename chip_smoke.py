@@ -5,9 +5,9 @@ occurrence-count and checkpoint paths at full lane scale, and byte-level
 checks against the C stand-in and the CPU.
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
-(``python3 chip_smoke.py --only 23,24`` builds the kernel and runs only
-phases 23 and 24; its last line is the same JSON result, with no kernels
-line.)
+(``python3 chip_smoke.py --only 23,24,25,26`` builds the kernel and runs
+only the phases named; its last line is the same JSON result, with no
+kernels line.)
 
 Phases (any failure exits non-zero):
   1. device   - the card's name and power limit (nvidia-smi) and torch's name
@@ -137,6 +137,30 @@ Phases (any failure exits non-zero):
                 blocks (>= 8 blocks each), byte-equal labels, and equal to
                 the CPU's; cold and warm walls, peak device memory, pairs,
                 friend keys, edges, rounds, each co-occurrence reduction
+ 25. paths    - the paths off the main path on lane20x (phase 23's .fqb):
+                --maxFriends 256 on one GPU and at --shards 4, stdout
+                byte-identical, the cluster stage under 60 s, and
+                cooccur.friends_table's rows equal to the dense _friends
+                rows on 4,096 codes of every size class; --clusterMode
+                pair; --writeHash, then --readHash --hashInfo
+                --clusterReport in a fresh CLI process, and the lane as
+                FASTQ through --readFastq (the native loader), each stdout
+                byte-identical to phase 23's one-GPU run (table slots
+                masked); --modimizer and --syncmer 11, each step one graph
+                replay, the incidence pairs equal to the counts dump's
+                in-band sum, and the kernel in each mode at the stacked
+                shape 65,536 x 150 against its plain version, timed as in
+                phase 3; per stage wall, peak and reserved device memory,
+                host RSS; the .npz size and the save and load walls
+ 26. crib20x  - a diploid lane20x (bench.make_barcodes_lane_blocked with
+                het_rate 0.001; two 2 Gb haplotypes, each written as 20
+                FASTA records of 100 Mb) through --codeClusters
+                --clusterReport --cribBuild h1.fa h2.fa --cribReport on one
+                GPU: every genome row through the kernel's kmer mode,
+                overall purity >= 0.85, one crib line per molecule, crib
+                totals summing to the retained k-mers; per stage (cribBuild
+                and cribReport too) wall, peak and reserved device memory,
+                host RSS
 The last two lines of stdout before the result are a JSON line describing
 the kernels and the card's name and power limit; the last line is the JSON
 result {"ok": true, "device": {...}}.
@@ -833,24 +857,33 @@ def phase_steps(torch, MK, ES, lane, main_text, main_dumps, tmp, C):
               f"host {host[1]:.4f} ms/step")
     del engines, eng, steps
 
-    # the sketch at the stacked shape
+    return time_stacked(torch, MK, spec, ss.S, C, "minimizer", {})
+
+
+def time_stacked(torch, MK, spec, S, C, mode, kw):
+    """The sketch at a stacked step's shape (S x 4,096 reads of 150 bp,
+    compacted to C) in ``mode`` against its plain version (equal in every
+    output), timed as in phase 3.  Returns the kernels-line tuple of that
+    shape."""
+    from hash10x_tpu_torch.utils.timing import kernel_device_ms as device_ms
     rng = np.random.default_rng(SEED + 2)
-    B = ss.S * PARITY_B
-    codes, lengths = _batch(rng, B, READ_LEN, K, W)
+    B = S * PARITY_B
+    codes, lengths = _batch(rng, B, READ_LEN, spec.k, spec.w)
     lengths[:] = READ_LEN
     c = torch.from_numpy(codes).cuda()
     ln = torch.from_numpy(lengths).cuda()
-    got = MK.sketch(spec, c, ln, compact_to=C)
-    ref = MK.sketch_plain(spec, c, ln, compact_to=C)
+    kw = dict(kw, mode=mode, compact_to=C)
+    got = MK.sketch(spec, c, ln, **kw)
+    ref = MK.sketch_plain(spec, c, ln, **kw)
     if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-        fail(f"kernel != plain at the stacked shape {B} x {READ_LEN}")
+        fail(f"kernel != plain at the stacked shape {B} x {READ_LEN}, "
+             f"{mode}")
     err = float((got[0] - ref[0]).abs().max())
-    kw = dict(mode="minimizer", compact_to=C)
     ms, plain_ms = time_kernel_plain(torch, MK, spec, c, ln, kw, 5, warm=1)
     dev_ms = device_ms(MK.launcher(spec, c, ln, **kw))
-    shape = (B, READ_LEN, C, K, "minimizer")
-    print_times(f"sketch stacked B={B} L={READ_LEN} k={K} w={W} C={C}",
-                (ms, plain_ms, dev_ms), shape)
+    shape = (B, READ_LEN, C, spec.k, mode, kw.get("syncmer_s", 0))
+    print_times(f"sketch stacked {mode} B={B} L={READ_LEN} k={spec.k} "
+                f"w={spec.w} C={C}", (ms, plain_ms, dev_ms), shape)
     return err, ms, plain_ms, dev_ms, shape
 
 
@@ -1386,26 +1419,34 @@ def phase_cuda_vs_cpu_legacy(run, tmp):
               "byte-identical")
 
 
-def write_fastq(path, reads, bc_ids):
-    """The lane as FASTQ: each read is its barcode id as a 16 bp 2-bit
-    barcode (base 0 in the top bits, so the sorted keys are the ids) and
-    its bases; fixed-length records, one vectorized write."""
-    n, L = reads.shape
-    shifts = 2 * (15 - np.arange(16))
-    bc = (bc_ids[:, None].astype(np.int64) >> shifts) & 3
-    acgt = np.frombuffer(b"ACGT", np.uint8)
-    seq = acgt[np.concatenate([bc, reads], axis=1)]
+def write_fastq(path, fqb, chunk=1 << 20):
+    """The lane as FASTQ: each read is its barcode id as a 16 bp barcode
+    (base 0 in the top bits, so the sorted keys are the ids) and its
+    bases, unpacked from the .fqb's 2-bit words ``chunk`` reads at a time
+    into fixed-length records."""
+    letters = bytes(range(256)).replace(b"\0\1\2\3", b"ACGT")
+    shifts = (2 * (15 - np.arange(16))).astype(np.uint32)
+    L = fqb.read_len
     S = 16 + L
-    rec = np.empty((n, 3 + S + 3 + S + 1), np.uint8)
-    rec[:, :3] = np.frombuffer(b"@r\n", np.uint8)
-    rec[:, 3:3 + S] = seq
-    rec[:, 3 + S:6 + S] = np.frombuffer(b"\n+\n", np.uint8)
-    rec[:, 6 + S:6 + 2 * S] = ord("I")
-    rec[:, -1] = ord("\n")
-    rec.tofile(path)
+    with open(path, "wb") as f:
+        for a in range(0, len(fqb), chunk):
+            b = min(a + chunk, len(fqb))
+            byte = fqb.packed[a:b].view(np.uint8)
+            rec = np.empty((b - a, 3 + S + 3 + S + 1), np.uint8)
+            rec[:, :3] = np.frombuffer(b"@r\n", np.uint8)
+            rec[:, 3:19] = (fqb.barcode_ids[a:b, None].astype(np.uint32)
+                            >> shifts) & 3
+            for j in range(4):          # base 4i + j is bits 2j of byte i
+                rec[:, 19 + j:3 + S:4] = (byte[:, :(L - j + 3) // 4]
+                                          >> (2 * j)) & 3
+            rec[:, 3 + S:6 + S] = np.frombuffer(b"\n+\n", np.uint8)
+            rec[:, 6 + S:6 + 2 * S] = ord("I")
+            rec[:, -1] = ord("\n")
+            # codes 0-3 become ACGT; the literal bytes are all above 3
+            f.write(rec.tobytes().translate(letters))
 
 
-def phase_observe(torch, MK, run, tmp, lane_reads, bc_ids, main_text):
+def phase_observe(torch, MK, run, tmp, main_text):
     """Phase 14: the observability flags and the native FASTQ loader."""
     import glob
     from hash10x_tpu_torch.io import fqb as FB
@@ -1436,7 +1477,7 @@ def phase_observe(torch, MK, run, tmp, lane_reads, bc_ids, main_text):
 
     fq = os.path.join(tmp, "lane.fastq")
     t0 = time.monotonic()
-    write_fastq(fq, lane_reads, bc_ids)
+    write_fastq(fq, FB.load_fqb(os.path.join(tmp, "lane.fqb")))
     print(f"fastq: {os.path.getsize(fq) / 1e9:.3f} GB written in "
           f"{time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
@@ -1453,6 +1494,7 @@ def phase_observe(torch, MK, run, tmp, lane_reads, bc_ids, main_text):
                for f in ("packed", "lengths", "barcode_ids", "barcode_keys"))
     if not same or plain.nmask is not None or native.nmask is not None:
         fail("native loader Fqb != numpy parser Fqb")
+    n_reads = len(native)
     del native, plain
     out, err = io.StringIO(), io.StringIO()
     t0 = time.monotonic()
@@ -1465,7 +1507,7 @@ def phase_observe(torch, MK, run, tmp, lane_reads, bc_ids, main_text):
         fail("--readFastq report != the .fqb report of phase 4")
     print(f"readFastq: native loader (built in {build_s:.3f} s) "
           f"{native_s:.3f} s vs numpy parser {plain_s:.3f} s for "
-          f"{len(bc_ids)} reads, equal Fqb; CLI stdout "
+          f"{n_reads} reads, equal Fqb; CLI stdout "
           f"({main_text.count(chr(10))} lines) byte-identical to phase 4; "
           f"CLI wall {wall:.3f} s")
 
@@ -1906,10 +1948,11 @@ class StageProbe:
     the outer one."""
 
     METHODS = ("count", "info", "filter", "incidence", "cluster", "split",
-               "report", "write_counts", "write_clusters")
+               "report", "write_counts", "write_clusters", "save")
 
-    def __init__(self, torch, Engine, st):
+    def __init__(self, torch, Engine, st, extra=()):
         self.torch, self.Engine, self.st = torch, Engine, st
+        self.extra = extra   # (module, function name) probed as stages too
         self.rows = []
         self._saved = []
         self._depth = 0
@@ -1937,6 +1980,8 @@ class StageProbe:
         for name in self.METHODS:
             self._patch(self.Engine, name,
                         self._wrap(name, getattr(self.Engine, name)))
+        for owner, name in self.extra:
+            self._patch(owner, name, self._wrap(name, getattr(owner, name)))
         self._patch(self.Engine, "_lane",
                     self._timed("lane", self.Engine._lane))
         flush = self._timed("flush", self.st.flush_grow)
@@ -1955,9 +2000,9 @@ class StageProbe:
     def _wrap(self, name, real):
         torch, st = self.torch, self.st
 
-        def probed(eng, *a, **kw):
+        def probed(*a, **kw):
             if self._depth:
-                return real(eng, *a, **kw)
+                return real(*a, **kw)
             self._depth += 1
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1965,7 +2010,7 @@ class StageProbe:
             self._sub = dict.fromkeys(self._sub, 0.0)
             t0 = time.monotonic()
             try:
-                return real(eng, *a, **kw)
+                return real(*a, **kw)
             finally:
                 torch.cuda.synchronize()
                 wall = time.monotonic() - t0
@@ -2034,10 +2079,14 @@ def digest_and_remove(path):
     return h.hexdigest(), n
 
 
-def band_sum_of_counts_dump(path, lo, hi):
+def band_sum_of_counts_dump(path, lo, hi, device="cuda"):
     """The sum of the counts in a --writeCounts dump ("hash<TAB>count"
-    lines) over the lines whose count lies in [lo, hi], parsed from the
-    file's bytes a block of lines at a time."""
+    lines) over the lines whose count lies in [lo, hi], parsed on
+    ``device`` from the file's bytes a block of lines at a time: each
+    count is read back from its line's newline, and one with more digits
+    than ``hi`` is out of the band."""
+    import torch
+    D = len(str(hi))
     total = 0
     rest = b""
     with open(path, "rb") as f:
@@ -2046,20 +2095,38 @@ def band_sum_of_counts_dump(path, lo, hi):
             data = rest + block
             cut = data.rfind(b"\n") + 1
             rest = data[cut:]
-            a = np.frombuffer(data[:cut], np.uint8)
-            if len(a):
-                tabs = np.flatnonzero(a == 9)
-                width = np.flatnonzero(a == 10) - tabs - 1
-                val = np.zeros(len(tabs), np.int64)
-                for j in range(int(width.max())):
-                    more = width > j
-                    val[more] = val[more] * 10 + (a[tabs[more] + 1 + j] - 48)
-                total += int(val[(val >= lo) & (val <= hi)].sum())
+            if cut:
+                a = torch.frombuffer(bytearray(data[:cut]),
+                                     dtype=torch.uint8).to(device)
+                nl = torch.nonzero(a == 10).squeeze(1)
+                val = torch.zeros_like(nl)
+                open_ = torch.ones_like(nl, dtype=torch.bool)  # no tab yet
+                for j in range(1, D + 2):
+                    ch = a[torch.clamp(nl - j, min=0)].to(torch.int64)
+                    open_ &= ch != 9
+                    if j <= D:
+                        val += torch.where(open_, (ch - 48) * 10 ** (j - 1),
+                                           0)
+                inside = ~open_ & (val >= lo) & (val <= hi)
+                total += int(val[inside].sum())
             if not block:
                 break
     if rest:
         fail(f"{path}: the last line has no newline")
     return total
+
+
+def scale_argv(*flags):
+    """Phase 23's parameters (band [2, 64], friend share 8) and ``flags``."""
+    return ["-k", str(K), "-w", str(W), "-r", str(SEED), "-B", "22",
+            "--minCount", str(SCALE_BAND[0]), "--maxCount",
+            str(SCALE_BAND[1]), "--friendShare", "8", *flags]
+
+
+def scale_report(lane, read="--readFQB"):
+    """Phase 23's commands on ``lane``, through the cluster report."""
+    return [read, lane, "--hashInfo", "--codeClusters", "--clusterSplit",
+            "--clusterReport"]
 
 
 LANE20X_RUNS = (("one GPU", []), ("--shards 4", ["--shards", "4"]),
@@ -2075,7 +2142,8 @@ def phase_scale(torch, MK, ES, run, tmp):
     three runs; the incidence pairs equal the in-band sum of the counts
     dump; every batch through the kernel, each step one CUDA graph replay;
     per stage (StageProbe) wall, peak device memory, reserved memory,
-    host RSS, flushes and table slots."""
+    host RSS, flushes and table slots.  Returns (the lane's .fqb path,
+    the one-GPU stdout with table slots masked, its kernel launches)."""
     import gc
     from hash10x_tpu_torch.cluster import sparse as SP
     from hash10x_tpu_torch.cluster import sparse_dist as SPD
@@ -2087,12 +2155,8 @@ def phase_scale(torch, MK, ES, run, tmp):
     for what, flags in LANE20X_RUNS:
         dumps = [os.path.join(tmp, f"lane20x.{x}")
                  for x in ("counts", "clusters")]
-        argv = ["-k", str(K), "-w", str(W), "-r", str(SEED), "-B", "22",
-                "--minCount", str(SCALE_BAND[0]), "--maxCount",
-                str(SCALE_BAND[1]), "--friendShare", "8", *flags,
-                "--readFQB", lane, "--hashInfo", "--codeClusters",
-                "--clusterSplit", "--clusterReport", "--writeCounts",
-                dumps[0], "--writeClusters", dumps[1]]
+        argv = scale_argv(*flags, *scale_report(lane), "--writeCounts",
+                          dumps[0], "--writeClusters", dumps[1])
         ES.REPLAYS = 0
         with StageProbe(torch, Engine, st) as probe:
             out, err, eng, launches, wall = run_counted(torch, MK, run, argv)
@@ -2147,7 +2211,7 @@ def phase_scale(torch, MK, ES, run, tmp):
         print(f"lane20x {what}: stdout ({out.count(chr(10))} lines), counts "
               "and clusters dumps byte-identical to the one-GPU run",
               flush=True)
-    return one_gpu_launches
+    return lane, first[0], one_gpu_launches
 
 
 def phase_stress(torch, MK, device="cuda"):
@@ -2210,13 +2274,325 @@ def phase_stress(torch, MK, device="cuda"):
           f"{cpu_s:.3f} s)", flush=True)
 
 
+# -- phases 25-26: the paths off the main path on lane20x ---------------------
+
+FRIEND_SAMPLE = 4096   # codes whose sparse friend rows meet the dense ones
+DENSE_ROWS = 128       # dense share rows (each n_codes int64) at once
+CLUSTER_LIMIT_S = 60   # the capped-friend cluster stage at 1M barcodes
+CRIB_HET = 0.001       # the diploid lanes' SNP rate (phase 11's)
+CRIB_RECORDS = 20      # FASTA records per lane20x haplotype (100 Mb each)
+
+
+def stage_row(probe, stage):
+    rows = [r for r in probe.rows if r["stage"] == stage]
+    if not rows:
+        fail(f"no {stage} stage was probed")
+    return rows[-1]
+
+
+def free_device(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_friend_sample(torch, inc, thr, max_friends):
+    """``cooccur.friends_table`` rows against the dense ``_friends`` rows
+    on FRIEND_SAMPLE codes drawn from every k-mer size class (an equal
+    share of each class, the rest at random); returns the codes per
+    class."""
+    from hash10x_tpu_torch.cluster import cooccur as CO
+    table = CO.friends_table(inc, thr, max_friends, pad=True)
+    sizes = torch.diff(inc.code_offsets).cpu().numpy()
+    longest = torch.zeros(inc.n_codes, dtype=torch.int64, device=inc.device)
+    longest.scatter_reduce_(0, inc.code_of_pair(),
+                            torch.diff(inc.kmer_offsets)[inc.code_kmers],
+                            "amax")
+    longest = longest.cpu().numpy()
+    active = np.flatnonzero(sizes > 0)
+    kcs = np.array([CO._size_class(int(n)) for n in sizes[active]])
+    rng = np.random.default_rng(SEED)
+    classes = np.unique(kcs)
+    quota = max(1, FRIEND_SAMPLE // len(classes))
+    picked = [rng.permutation(active[kcs == kc])[:quota] for kc in classes]
+    rest = np.setdiff1d(active, np.concatenate(picked))
+    picked.append(rng.permutation(rest)[:max(
+        0, FRIEND_SAMPLE - sum(len(p) for p in picked))])
+    sample = np.concatenate(picked)
+    per_class = {}
+    for kc in classes:
+        codes = sample[np.array([CO._size_class(int(sizes[c]))
+                                 for c in sample]) == kc]
+        per_class[int(kc)] = len(codes)
+        C = CO._size_class(int(longest[codes].max()))
+        for a in range(0, len(codes), DENSE_ROWS):
+            chunk = torch.from_numpy(codes[a:a + DENSE_ROWS]).to(inc.device)
+            _, _, cl = CO.batch_lists(inc, chunk, int(kc), C)
+            dense = CO._friends(cl, chunk, inc.n_codes, thr, max_friends)
+            if not torch.equal(dense, table[chunk]):
+                fail(f"friends_table rows != the dense rows (size class "
+                     f"{kc})")
+    return per_class
+
+
+def phase_paths(torch, MK, ES, run, tmp, lane=None, ref=None):
+    """Phase 25: the paths off the main path on lane20x (phase 23's .fqb
+    and one-GPU stdout, made anew when phase 23 did not run): capped
+    friend (--maxFriends 256) on one GPU and at --shards 4, byte-identical,
+    the cluster stage under CLUSTER_LIMIT_S, the sparse friend rows equal
+    to the dense ones on FRIEND_SAMPLE codes; pair mode; a --writeHash /
+    --readHash round trip in a fresh CLI process and --readFastq through
+    the native loader, each stdout byte-identical to phase 23's one-GPU
+    run; --modimizer and --syncmer 11 with every step a graph replay and
+    the incidence pairs equal to the counts dump's in-band sum, and the
+    kernel at their stacked shape.  Per stage (StageProbe) wall, peak and
+    reserved device memory, host RSS.  Returns (launches and stacked
+    kernels-line tuple per mode)."""
+    import subprocess as sp
+    from hash10x_tpu_torch.cluster import sparse as SP
+    from hash10x_tpu_torch.engine import Engine
+    from hash10x_tpu_torch.hashspec import HashSpec
+    from hash10x_tpu_torch.io import fqb as FB
+    from hash10x_tpu_torch.table import sorted_table as st
+    if lane is None:
+        lane = make_lane20x(tmp)
+        out, _, eng, _, _ = run_counted(torch, MK, run,
+                                        scale_argv(*scale_report(lane)))
+        ref = masked(out)
+        del eng
+        free_device(torch)
+    n_lines = ref.count("\n")
+
+    def probed(what, argv, extra=()):
+        with StageProbe(torch, Engine, st, extra) as probe:
+            out, err, eng, launches, wall = run_counted(torch, MK, run,
+                                                        argv)
+        probe.print(what)
+        return out, err, eng, launches, wall, probe
+
+    # capped friend, one GPU and --shards 4
+    texts = []
+    for what, flags in (("one GPU", []), ("--shards 4", ["--shards", "4"])):
+        out, err, eng, n, wall, probe = probed(
+            f"capped friend {what}",
+            scale_argv("--maxFriends", "256", *flags, *scale_report(lane)))
+        cl_s = stage_row(probe, "cluster")["wall_s"]
+        print(f"capped friend {what}: {molecules(err)} molecules; cluster "
+              f"stage {cl_s:.3f} s; friend keys "
+              f"{SP.STATS.get('friend_keys')}, co-occurrence keys "
+              f"{SP.STATS.get('cooccur_keys')}; CLI wall {wall:.3f} s",
+              flush=True)
+        if cl_s >= CLUSTER_LIMIT_S:
+            fail(f"capped friend {what}: cluster stage {cl_s:.1f} s >= "
+                 f"{CLUSTER_LIMIT_S} s")
+        if not flags:
+            t0 = time.monotonic()
+            per_class = check_friend_sample(torch, eng.inc, 8, 256)
+            print(f"capped friend: sparse friend rows == dense _friends "
+                  f"rows on {sum(per_class.values())} codes (per size "
+                  f"class {per_class}) in {time.monotonic() - t0:.3f} s",
+                  flush=True)
+        texts.append(masked(out))
+        del eng
+        free_device(torch)
+    if texts[0] != texts[1]:
+        fail("capped friend: --shards 4 stdout != the one-GPU run's")
+    print(f"capped friend: --shards 4 stdout ({texts[0].count(chr(10))} "
+          "lines) byte-identical to the one-GPU run", flush=True)
+
+    # pair mode
+    out, err, eng, n, wall, probe = probed(
+        "pair", scale_argv("--clusterMode", "pair", "--minShare", "2",
+                           *scale_report(lane)))
+    print(f"pair: {molecules(err)} molecules; cluster stage "
+          f"{stage_row(probe, 'cluster')['wall_s']:.3f} s; CLI wall "
+          f"{wall:.3f} s", flush=True)
+    if f"code {eng.inc.n_codes - 1} nKmers" not in out:
+        fail("pair: the report lacks its last code's line")
+    del eng
+    free_device(torch)
+
+    # checkpoint round trip: --writeHash here, --readHash in a fresh process
+    ck = os.path.join(tmp, "lane20x.hash")
+    out, err, eng, n, wall, probe = probed(
+        "writeHash", scale_argv(*scale_report(lane), "--writeHash", ck))
+    del eng
+    free_device(torch)
+    if masked(out) != ref:
+        fail("writeHash run: stdout != phase 23's one-GPU run")
+    size = os.path.getsize(ck + ".npz")
+    argv = scale_argv("--readHash", ck, "--hashInfo", "--clusterReport")
+    t0 = time.monotonic()
+    r = sp.run([sys.executable, "-m", "hash10x_tpu_torch", *argv],
+               cwd=ROOT, capture_output=True, text=True, timeout=900)
+    load_wall = time.monotonic() - t0
+    os.remove(ck + ".npz")
+    if r.returncode:
+        print(r.stderr[-4000:], file=sys.stderr)
+        fail(f"--readHash exited {r.returncode}")
+    if masked(r.stdout) != ref:
+        fail("--readHash report != phase 23's one-GPU stdout")
+    print(f"checkpoint: .npz {size} bytes; save "
+          f"{stage_row(probe, 'save')['wall_s']:.3f} s (peak device "
+          f"{stage_row(probe, 'save')['peak_gb']:.2f} GB); fresh CLI "
+          f"--readHash --hashInfo --clusterReport {load_wall:.3f} s (stage "
+          f"lines: " + "; ".join(stage_lines(r.stderr)) + f"); stdout "
+          f"({n_lines} lines) byte-identical to phase 23's one-GPU run",
+          flush=True)
+
+    # FASTQ through the native loader
+    fq = os.path.join(tmp, "lane20x.fastq")
+    t0 = time.monotonic()
+    write_fastq(fq, FB.load_fqb(lane))
+    fq_s = time.monotonic() - t0
+    fq_bytes = os.path.getsize(fq)
+    out, err, eng, n, wall, probe = probed(
+        "readFastq", scale_argv(*scale_report(fq, "--readFastq")),
+        [(FB, "fastq_to_fqb")])
+    del eng
+    free_device(torch)
+    os.remove(fq)
+    if masked(out) != ref:
+        fail("--readFastq stdout != phase 23's one-GPU run")
+    load = stage_row(probe, "fastq_to_fqb")
+    print(f"readFastq: {fq_bytes} bytes written in {fq_s:.3f} s; loaded "
+          f"(native loader) in {load['wall_s']:.3f} s, host RSS "
+          f"{load['rss_gb']:.2f} GB; CLI wall {wall:.3f} s; stdout ({n_lines} lines) "
+          "byte-identical to phase 23's one-GPU run", flush=True)
+
+    # modimizer and syncmer
+    modes = {}
+    for mode, flags, kw in (("modimizer", ["--modimizer"], {}),
+                            ("syncmer", ["--syncmer", "11"],
+                             {"syncmer_s": 11})):
+        dump = os.path.join(tmp, f"lane20x_{mode}.counts")
+        ES.REPLAYS = 0
+        out, err, eng, n, wall, probe = probed(
+            f"lane20x {mode}", scale_argv(
+                *flags, "--readFQB", lane, "--codeClusters",
+                "--clusterReport", "--writeCounts", dump))
+        n_batches = len(eng._lane_cache[3])
+        steps, replays, graphs = check_replays(f"lane20x {mode}", eng, ES,
+                                               n, 2 * n_batches)
+        pairs = eng.inc.n_pairs
+        band = band_sum_of_counts_dump(dump, *SCALE_BAND)
+        os.remove(dump)
+        if band != pairs:
+            fail(f"lane20x {mode}: {pairs} incidence pairs != {band}, the "
+                 "in-band sum of the counts dump")
+        C = eng._compact_rows(READ_LEN - K + 1)
+        S = eng.cfg.flush_batches
+        print(f"lane20x {mode}: {steps} steps over {n_batches} batches per "
+              f"pass, {replays} replays of {graphs} graphs, kernel launches "
+              f"{n}, plain calls 0; {eng.table.n_filled} kmers, {pairs} "
+              f"incidence pairs = the counts dump's in-band sum; "
+              f"{molecules(err)} molecules; CLI wall {wall:.3f} s",
+              flush=True)
+        del eng
+        free_device(torch)
+        spec = HashSpec(k=K, w=W, seed=SEED)
+        modes[mode] = (n, time_stacked(torch, MK, spec, S, C, mode, kw))
+    return modes
+
+
+def phase_crib_scale(torch, MK, ES, run, tmp):
+    """Phase 26: the diploid lane20x (``make_barcodes_lane_blocked(
+    het_rate=CRIB_HET)``: each molecule from one of two 2 Gb haplotypes,
+    each written as CRIB_RECORDS FASTA records) through --codeClusters
+    --clusterReport --cribBuild h1.fa h2.fa --cribReport on one GPU: every
+    genome row through the kernel's dense kmer mode (launches in cribBuild
+    > 0, plain calls 0), overall purity >= 0.85, one crib line per
+    molecule of the run's cluster report, crib totals summing to the
+    retained k-mers.  Per stage (StageProbe, cribBuild and cribReport
+    too) wall, peak and reserved device memory, host RSS.  Returns the
+    kernel launches in cribBuild."""
+    from hash10x_tpu_torch.bench import (make_barcodes_lane_blocked,
+                                         write_fasta_records)
+    from hash10x_tpu_torch.crib import crib as CR
+    from hash10x_tpu_torch.engine import Engine
+    from hash10x_tpu_torch.io.fqb import save_fqb
+    from hash10x_tpu_torch.table import sorted_table as st
+    t0 = time.monotonic()
+    fqb, haps = make_barcodes_lane_blocked(het_rate=CRIB_HET,
+                                           return_haplotypes=True)
+    gen_s = time.monotonic() - t0
+    lane = os.path.join(tmp, "diploid20x.fqb")
+    save_fqb(lane, fqb)
+    n_reads, n_codes = len(fqb), fqb.n_barcodes
+    del fqb
+    n_het = int((haps[0] != haps[1]).sum())
+    fas = [os.path.join(tmp, f"h{i + 1}_20x.fa") for i in range(2)]
+    t0 = time.monotonic()
+    for fa, hap in zip(fas, haps):
+        write_fasta_records(fa, hap, CRIB_RECORDS)
+    fa_s = time.monotonic() - t0
+    del haps
+    print(f"crib lane20x: {n_reads} reads, {n_codes} barcodes, two "
+          f"haplotypes of {CRIB_RECORDS} records ({os.path.getsize(fas[0])}"
+          f" bytes of FASTA each) with {n_het} het sites; generator "
+          f"{gen_s:.3f} s, FASTA written in {fa_s:.3f} s, host RSS "
+          f"{host_rss_gb()[0]:.2f} GB", flush=True)
+    argv = scale_argv("--readFQB", lane, "--codeClusters", "--clusterReport",
+                      "--cribBuild", *fas, "--cribReport")
+    out, err = io.StringIO(), StageLog(MK)
+    with StageProbe(torch, Engine, st, [(CR, "build_crib"),
+                                        (CR, "crib_report")]) as probe:
+        MK.LAUNCHES = MK.PLAIN_CALLS = 0
+        t0 = time.monotonic()
+        eng = run(argv, out, err)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    for f in fas + [lane + ".npz"]:
+        os.remove(f)
+    probe.print("crib lane20x")
+    crib_launches = err.launches_in("cribBuild")
+    if crib_launches <= 0 or MK.PLAIN_CALLS != 0:
+        fail(f"crib lane20x cribBuild: kernel launches {crib_launches}, "
+             f"plain calls {MK.PLAIN_CALLS}")
+    text = out.getvalue()
+    totals = re.search(r"^crib totals (.*)$", text, re.M)
+    overall = re.search(r"^crib overall purity (\S+) .*$", text, re.M)
+    if not totals or not overall:
+        fail("crib lane20x: the report lacks its totals or overall purity")
+    total = sum(int(x) for x in totals.group(1).split()[1::2])
+    n_kmers = eng.retained_hashes.shape[0]
+    mols = molecules(err.getvalue())
+    report_mols = sum(int(x) for x in re.findall(r" nClusters (\d+) ",
+                                                 text))
+    crib_lines = text.count(" cluster ")
+    purity = float(overall.group(1))
+    print(f"crib lane20x: {totals.group(0)}; {overall.group(0)}; "
+          f"{crib_lines} crib lines = {report_mols} clusters of the "
+          f"report = {mols} molecules; kernel launches in cribBuild "
+          f"{crib_launches} (row groups), plain calls 0; cribBuild "
+          f"{stage_row(probe, 'build_crib')['wall_s']:.3f} s, cribReport "
+          f"{stage_row(probe, 'crib_report')['wall_s']:.3f} s; CLI wall "
+          f"{wall:.3f} s", flush=True)
+    if total != n_kmers:
+        fail(f"crib lane20x: crib totals sum to {total}, not the "
+             f"{n_kmers} retained k-mers")
+    if not crib_lines == report_mols == mols:
+        fail(f"crib lane20x: {crib_lines} crib lines, {report_mols} report "
+             f"clusters, {mols} molecules")
+    if purity < 0.85:
+        fail(f"crib lane20x: overall purity {purity} < 0.85")
+    del eng
+    free_device(torch)
+    return crib_launches
+
+
 def run_only(torch, MK, ES, run, only):
-    """``--only 23,24``: after the build, only the phases named."""
+    """``--only 23,24,25,26``: after the build, only the phases named."""
     with tempfile.TemporaryDirectory() as tmp:
+        lane = ref = None
         if 23 in only:
-            phase_scale(torch, MK, ES, run, tmp)
+            lane, ref, _ = phase_scale(torch, MK, ES, run, tmp)
         if 24 in only:
             phase_stress(torch, MK)
+        if 25 in only:
+            phase_paths(torch, MK, ES, run, tmp, lane, ref)
+        if 26 in only:
+            phase_crib_scale(torch, MK, ES, run, tmp)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2289,7 +2665,7 @@ def main() -> int:
         crib_launches = phase_crib(torch, MK, run, tmp)
         phase_legacy(torch, MK, run, lane)
         phase_cuda_vs_cpu_legacy(run, tmp)
-        phase_observe(torch, MK, run, tmp, reads, bc_ids, text)
+        phase_observe(torch, MK, run, tmp, text)
         elapsed("phases 7-14")
         phase_shards(torch, MK, ES, run, lane, tmp, text, main_dumps,
                      n_batches)
@@ -2307,10 +2683,16 @@ def main() -> int:
         elapsed("phase 21")
         phase_join_graphs(torch, MK, ES, tmp)
         elapsed("phase 22")
-        scale_launches = phase_scale(torch, MK, ES, run, tmp)
+        lane20x, ref20x, scale_launches = phase_scale(torch, MK, ES, run,
+                                                      tmp)
         elapsed("phase 23")
         phase_stress(torch, MK)
         elapsed("phase 24")
+        paths = phase_paths(torch, MK, ES, run, tmp, lane20x, ref20x)
+        os.remove(lane20x + ".npz")
+        elapsed("phase 25")
+        crib20x_launches = phase_crib_scale(torch, MK, ES, run, tmp)
+        elapsed("phase 26")
 
     kernels = [kernel_entry(
         "seqhash_sketch", launches, max(max_err, fuzz_err), *main_times,
@@ -2332,6 +2714,14 @@ def main() -> int:
     err, *times, shape = wide
     kernels.append(kernel_entry("seqhash_sketch_minimizer_wide",
                                 wide_launches, err, *times, shape))
+    # the routes off the main path on lane20x (phases 25-26)
+    for mode in ("modimizer", "syncmer"):
+        n, (err, *times, shape) = paths[mode]
+        kernels.append(kernel_entry(f"seqhash_sketch_{mode}_stacked_lane20x",
+                                    n, err, *times, shape))
+    kernels.append(kernel_entry(
+        "seqhash_sketch_kmer_crib_lane20x", crib20x_launches, crib[0],
+        *crib[1:], (crib_rows, 1 << 15, (1 << 15) - K + 1, K, "kmer")))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

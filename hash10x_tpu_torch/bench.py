@@ -40,7 +40,9 @@ line is printed again, so the last line always parses as JSON under 4 KB;
 the full payload goes to ``chiprun_out/bench_torch_detail.json``.  With no
 CUDA device the bench prints one JSON line and exits non-zero: it does not
 run on the CPU.  The point functions take the device and the sizes, so
-tests call them small on the CPU.
+tests call them small on the CPU.  Once every point has run, the bench
+exits 1 if any point raised (a point skipped for the budget does not
+count).
 """
 
 from __future__ import annotations
@@ -72,7 +74,8 @@ from .table.incidence import build_incidence
 from .utils.timing import kernel_device_ms
 
 __all__ = ["make_lane", "make_barcodes_lane", "blocked_genome",
-           "make_barcodes_lane_blocked", "lane_fqb", "launch_floor_ms",
+           "blocked_snps", "make_barcodes_lane_blocked",
+           "write_fasta_records", "lane_fqb", "launch_floor_ms",
            "bench_engine", "bench_breakdown", "bench_barcodes",
            "bench_routing_ab", "bench_cluster", "bench_shards_curve",
            "Summary", "run_plan", "main"]
@@ -166,45 +169,103 @@ def blocked_genome(genome_len: int, seed: int = 11) -> np.ndarray:
     return genome
 
 
+def blocked_snps(genome: np.ndarray, het_rate: float,
+                 seed: int = 11) -> np.ndarray:
+    """A second haplotype of ``genome``: a copy with a SNP at each base with
+    probability ``het_rate``, drawn per ``GENOME_BLOCK``-base block from
+    ``default_rng([seed, 2, i])``: the block's site count (binomial), the
+    sites (uniform without replacement), then a shift of 1-3 per site."""
+    hap = genome.copy()
+    for i, a in enumerate(range(0, len(genome), GENOME_BLOCK)):
+        n = min(GENOME_BLOCK, len(genome) - a)
+        rng = np.random.default_rng([seed, 2, i])
+        sites = a + np.sort(rng.choice(n, rng.binomial(n, het_rate),
+                                       replace=False))
+        shift = rng.integers(1, 4, size=len(sites), dtype=np.uint8)
+        hap[sites] = (hap[sites] + shift) % 4
+    return hap
+
+
 def make_barcodes_lane_blocked(n_reads: int = LANE20X[0],
                                n_codes: int = LANE20X[1],
                                genome_len: int = LANE20X[2], seed: int = 11,
-                               chunk: int = READ_CHUNK) -> Fqb:
+                               chunk: int = READ_CHUNK, het_rate: float = 0.0,
+                               return_haplotypes: bool = False):
     """The bench lane's shape at any scale, built a block at a time: each
     of ``n_codes`` barcodes is one 30 kb molecule of a
     :func:`blocked_genome` with ``n_reads / n_codes`` 150 bp reads drawn
     inside it; reads come sorted by barcode.  Reads are gathered and 2-bit
     packed ``chunk`` at a time (a memory bound only: the output does not
     depend on it), so host memory holds the genome, the packed lane and
-    one chunk.  Its random stream is not ``make_barcodes_lane``'s."""
+    one chunk.  Its random stream is not ``make_barcodes_lane``'s.
+
+    With ``het_rate`` > 0 the sample is diploid: the second haplotype is
+    :func:`blocked_snps` of the genome, and each molecule takes its reads
+    from the haplotype ``default_rng([seed, 3])`` draws for it; at 0 no
+    draw is made and the lane's bytes are the haploid lane's.  With
+    ``return_haplotypes`` returns (Fqb, [haplotypes]) instead of the Fqb."""
     if n_reads % n_codes:
         raise ValueError("n_reads must be a multiple of n_codes")
     genome = blocked_genome(genome_len, seed)
+    haps = [genome]
+    if het_rate > 0:
+        haps.append(blocked_snps(genome, het_rate, seed))
     rng = np.random.default_rng([seed, 0])
     mol_starts = rng.integers(0, genome_len - MOLECULE, size=n_codes)
     offs = rng.integers(0, MOLECULE - READ_LEN, size=n_reads,
                         dtype=np.int32)
     bc_ids = np.repeat(np.arange(n_codes, dtype=np.int32),
                        n_reads // n_codes)
+    hap_of_mol = (np.random.default_rng([seed, 3]).integers(
+        0, 2, size=n_codes) if het_rate > 0 else None)
     words = (READ_LEN + 15) // 16
     packed = np.empty((n_reads, words), np.uint32)
-    windows = np.lib.stride_tricks.sliding_window_view(genome, READ_LEN)
+    windows = [np.lib.stride_tricks.sliding_window_view(h, READ_LEN)
+               for h in haps]
     padded = np.zeros((chunk, 16 * words), np.uint8)
     for a in range(0, n_reads, chunk):
         b = min(a + chunk, n_reads)
         starts = mol_starts[bc_ids[a:b]] + offs[a:b]
         reads = padded[:b - a]
-        reads[:, :READ_LEN] = windows[starts]
+        reads[:, :READ_LEN] = windows[0][starts]
+        if hap_of_mol is not None:
+            on2 = np.flatnonzero(hap_of_mol[bc_ids[a:b]] == 1)
+            reads[on2, :READ_LEN] = windows[1][starts[on2]]
         # pack_2bit's layout (base j at bits 2j of word j // 16), four
         # bases per byte, the bytes read as little-endian uint32 words
         q = reads.reshape(b - a, 4 * words, 4)
         byte = q[..., 0] | (q[..., 1] << 2) | (q[..., 2] << 4) \
             | (q[..., 3] << 6)
         packed[a:b] = byte.view("<u4")
-    return Fqb(packed=packed, lengths=np.full(n_reads, READ_LEN, np.int32),
-               barcode_ids=bc_ids,
-               barcode_keys=np.arange(n_codes, dtype=np.uint32),
-               read_len=READ_LEN)
+    fqb = Fqb(packed=packed, lengths=np.full(n_reads, READ_LEN, np.int32),
+              barcode_ids=bc_ids,
+              barcode_keys=np.arange(n_codes, dtype=np.uint32),
+              read_len=READ_LEN)
+    return (fqb, haps) if return_haplotypes else fqb
+
+
+_ASCII = b"ACGT" + b"N" * 252   # base code -> letter, for bytes.translate
+
+
+def write_fasta_records(path, genome: np.ndarray, n_records: int,
+                        width: int = 60) -> None:
+    """``genome`` (base codes) as ``n_records`` FASTA records of equal
+    length (``chr1``, ``chr2``, ...; the last takes the remainder), as an
+    assembly splits into chromosomes, ``width`` bases a line."""
+    step = len(genome) // n_records
+    with open(path, "wb") as f:
+        for r in range(n_records):
+            end = len(genome) if r == n_records - 1 else (r + 1) * step
+            seq = np.frombuffer(genome[r * step:end].tobytes().translate(
+                _ASCII), np.uint8)
+            full = len(seq) // width * width
+            body = np.empty((full // width, width + 1), np.uint8)
+            body[:, :width] = seq[:full].reshape(-1, width)
+            body[:, width] = ord("\n")
+            f.write(b">chr%d\n" % (r + 1))
+            f.write(body.data)
+            if full < len(seq):
+                f.write(seq[full:].tobytes() + b"\n")
 
 
 def lane_fqb(reads: np.ndarray, bc_ids=None, n_codes: int = 1) -> Fqb:
@@ -716,7 +777,7 @@ class Summary:
                  detail: Path = DETAIL, out=sys.stdout):
         self.t0 = time.monotonic()
         self.budget_s = budget_s
-        self.points, self.skipped = [], []
+        self.points, self.skipped, self.failed = [], [], []
         self.head = {"metric": "count_pass_reads_per_s", "value": 0,
                      "unit": "reads/s", "vs_baseline": 0}
         self.device_info = device_info
@@ -772,7 +833,8 @@ BARCODES_FULL = 150
 def run_plan(summary: Summary, plan, estimates=ESTIMATES) -> None:
     """Run each (name, point function) whose estimate fits the time left;
     a skipped point is named with its reason (the budget, or the error
-    that stopped it), and the summary is printed after every point."""
+    that stopped it; a point that raised is also named in
+    ``summary.failed``), and the summary is printed after every point."""
     for name, fn in plan:
         left = summary.remaining()
         if left < estimates[name]:
@@ -784,6 +846,7 @@ def run_plan(summary: Summary, plan, estimates=ESTIMATES) -> None:
                 summary.points.append(fn())
             except Exception as e:   # the other points still run
                 traceback.print_exc()
+                summary.failed.append(name)
                 summary.skipped.append(
                     {"name": name,
                      "reason": f"{type(e).__name__}: {e}"[:200]})
@@ -834,7 +897,7 @@ def main() -> int:
                 ("shards_curve_one_card", lambda: bench_shards_curve(device))]
         run_plan(summary, plan)
     summary.emit(final=True)
-    return 0
+    return 1 if summary.failed else 0
 
 
 if __name__ == "__main__":

@@ -12,10 +12,10 @@ holds rows of one padded width K.  Per batch:
    codes, build the 0/1 indicator D (B, K, U) and the support S = D @ D^T
    (B, K, K); two k-mers link iff S - 1 >= min_share (both lists always hold
    the barcode itself);
-   capped-friend mode: the barcode's shares with every other barcode, its
-   top ``max_friends`` friends by the packed key share * n + (n - 1 - id)
-   (share descending, then smaller id), kept iff share >= the threshold; a
-   k-mer and a friend link iff the friend is in the k-mer's list;
+   capped-friend mode: the barcode's top ``max_friends`` friends by share
+   descending, then smaller id, kept iff share >= the threshold (one row of
+   ``friends_table``); a k-mer and a friend link iff the friend is in the
+   k-mer's list;
 3. min-label propagation to the fixpoint: each k-mer's label is the
    smallest k-mer index of its component;
 4. canonical ranks: the number of distinct component labels below a
@@ -31,6 +31,13 @@ byte budget.  Labels do not depend on batch composition, so the batch size
 is a memory choice only: ``max_batch_bytes`` bounds the per-batch working
 set (2 GiB by default on a device with 80 GB; the JAX package's 256 MiB was
 a TPU choice).
+
+The JAX package takes each batch's friends from a dense (B, n_codes) share
+row and a ``top_k`` over it (``_friends`` here, kept as the reference the
+tests hold ``friends_table`` against): O(n_codes^2) work over the lane,
+10^12 share cells at 1M barcodes.  ``friends_table`` takes the same rows
+from the sparse co-occurrence counts of ``cluster/sparse.py``, in memory
+proportional to the co-occurring pairs.
 """
 
 from __future__ import annotations
@@ -41,10 +48,11 @@ import torch
 from ..table.incidence import Incidence
 
 __all__ = ["cluster_batch", "shares_batch", "friend_union_batch",
-           "cluster_codes"]
+           "friends_table", "cluster_codes"]
 
 _PAD = (1 << 31) - 1       # sorts after every code (codes are int32-sized)
 _BATCH_BYTES = 2 << 30
+_FILL_CELLS = 1 << 26      # (rows, ids) cells per block of the zero-share fill
 
 
 def _size_class(n: int) -> int:
@@ -162,7 +170,8 @@ def friend_union_batch(cl: torch.Tensor, kmer_valid: torch.Tensor,
 def _friends(cl: torch.Tensor, self_codes: torch.Tensor, n_codes: int,
              thr: int, max_friends: int) -> torch.Tensor:
     """Top-``max_friends`` friends of each row through the unique packed key
-    share * n + (n - 1 - id); -1 where the share is below ``thr``."""
+    share * n + (n - 1 - id); -1 where the share is below ``thr``.  The
+    dense reference of ``friends_table``."""
     share = shares_batch(cl, self_codes, n_codes)
     iota = torch.arange(n_codes, device=cl.device)
     key = share * n_codes + (n_codes - 1 - iota)
@@ -170,6 +179,71 @@ def _friends(cl: torch.Tensor, self_codes: torch.Tensor, n_codes: int,
     top_share = top // n_codes
     top_id = n_codes - 1 - top % n_codes
     return torch.where(top_share >= thr, top_id, -1)
+
+
+def friends_table(inc: Incidence, thr: int, max_friends: int,
+                  pad: bool = False) -> torch.Tensor:
+    """Every barcode's row of ``_friends`` from the sparse co-occurrence
+    counts: the (code, friend, share) triples of ``cooccurrence_counts`` in
+    both orders, sorted by code, share descending and friend id ascending;
+    a code's first ``max_friends`` with share >= ``thr`` fill its row.
+
+    At ``thr <= 0`` the dense row goes on with the codes that share nothing
+    with the barcode (itself included) in ascending id order, until it
+    holds ``max_friends``; those are filled here too, so every row equals
+    the dense one.  Returns (n_codes, W) int64, -1 padded: W =
+    min(max_friends, n_codes) with ``pad`` or ``thr <= 0``, else the
+    longest row (columns past it are -1 in every dense row)."""
+    from .sparse import STATS, cooccurrence_counts
+    n, dev = inc.n_codes, inc.device
+    F = min(max_friends, n)
+    STATS.clear()
+    keys, shares = cooccurrence_counts(inc)
+    c1, c2 = keys // n, keys % n
+    code, friend = torch.cat([c1, c2]), torch.cat([c2, c1])
+    share = torch.cat([shares, shares])
+    ok = share >= thr
+    code, friend, share = code[ok], friend[ok], share[ok]
+    # (code, friend) ascending, then stable by share descending and by code
+    o = torch.argsort(code * n + friend)
+    o = o[torch.argsort(-share[o], stable=True)]
+    o = o[torch.argsort(code[o], stable=True)]
+    code, friend = code[o], friend[o]
+    STATS["friend_keys"] = code.shape[0]
+    per_code = torch.bincount(code, minlength=n)
+    rank = torch.arange(code.shape[0], device=dev) \
+        - (torch.cumsum(per_code, 0) - per_code)[code]
+    keep = rank < F
+    kept = torch.clamp(per_code, max=F)
+    W = F if pad or thr <= 0 else max(1, int(kept.max()) if n else 1)
+    table = torch.full((n, W), -1, dtype=torch.int64, device=dev)
+    table[code[keep], rank[keep]] = friend[keep]
+    if thr <= 0:
+        _fill_zero_share(table, kept, code[keep], friend[keep])
+    return table
+
+
+def _fill_zero_share(table: torch.Tensor, kept: torch.Tensor,
+                     code: torch.Tensor, friend: torch.Tensor) -> None:
+    """Append to each row of ``table`` (holding ``kept`` positive-share
+    friends: ``friend`` of ``code``) the ids that share nothing with the
+    code, ascending, up to the row's width.  A row holding p < W friends
+    needs W - p such ids, all below W + p < 2W, so ids [0, min(2W, n))
+    are the candidates."""
+    n, W = table.shape
+    R = min(n, 2 * W)
+    rows = max(1, _FILL_CELLS // R)
+    near = friend < R
+    for a in range(0, n, rows):
+        b = min(a + rows, n)
+        sel = near & (code >= a) & (code < b)
+        taken = torch.zeros((b - a, R), dtype=torch.bool, device=table.device)
+        taken[code[sel] - a, friend[sel]] = True
+        free = ~taken
+        slot = kept[a:b, None] + torch.cumsum(free.to(torch.int64), 1) - 1
+        put = free & (slot < W)
+        r, ids = torch.nonzero(put, as_tuple=True)
+        table[a + r, slot[r, ids]] = ids
 
 
 def _gather_lists(inc: Incidence, km: torch.Tensor, valid: torch.Tensor,
@@ -185,16 +259,26 @@ def _gather_lists(inc: Incidence, km: torch.Tensor, valid: torch.Tensor,
     return torch.where(ok, inc.kmer_codes[idx], -1)
 
 
-def _row_bytes(mode: str, K: int, C: int, n_codes: int,
-               max_friends: int) -> int:
+def batch_lists(inc: Incidence, chunk: torch.Tensor, K: int, C: int):
+    """One padded batch of the barcodes ``chunk``: each row's forward-CSR
+    positions (B, K) (0 where padded), the valid mask (B, K) and CL
+    (B, K, C), the inverted-CSR list of each of its k-mers."""
+    kio = torch.arange(K, device=chunk.device)
+    valid = kio[None, :] < (inc.code_offsets[chunk + 1]
+                            - inc.code_offsets[chunk])[:, None]
+    pos = torch.where(valid, inc.code_offsets[chunk][:, None] + kio, 0)
+    km = torch.where(valid, inc.code_kmers[pos], -1)
+    return pos, valid, _gather_lists(inc, km, valid, C)
+
+
+def _row_bytes(mode: str, K: int, C: int, F: int) -> int:
     """Working set of one batch row in bytes (int64 and float32 cells):
     pair mode holds CL and its sort (K*C), S and the propagation temporaries
-    (K*K); friend mode holds CL, the share and key rows (n_codes) and the
-    membership temporaries (K*F)."""
+    (K*K); friend mode holds CL and the membership temporaries of its ``F``
+    friends (K*F)."""
     if mode == "pair":
         return 8 * (4 * K * C + 3 * K * K)
-    F = min(max_friends, n_codes)
-    return 8 * (2 * K * C + 3 * n_codes + 4 * K * F)
+    return 8 * (2 * K * C + 4 * K * F)
 
 
 def cluster_codes(inc: Incidence, min_share: int = 2, mode: str = "friend",
@@ -222,27 +306,22 @@ def cluster_codes(inc: Incidence, min_share: int = 2, mode: str = "friend",
     longest.scatter_reduce_(0, code_of, list_lens[inc.code_kmers], "amax")
     sizes = torch.diff(inc.code_offsets).cpu().numpy()
     longest = longest.cpu().numpy()
+    table = (friends_table(inc, min_friend_share, max_friends)
+             if mode == "friend" else None)
+    F = table.shape[1] if mode == "friend" else 0
     order = np.argsort(sizes, kind="stable")
     active = order[sizes[order] > 0]
     kcs = np.array([_size_class(int(n)) for n in sizes[active]])
     for kc in np.unique(kcs):
         codes = active[kcs == kc]
         K, C = int(kc), _size_class(int(longest[codes].max()))
-        bsz = max(1, max_batch_bytes // _row_bytes(mode, K, C, inc.n_codes,
-                                                   max_friends))
-        kio = torch.arange(K, device=dev)
+        bsz = max(1, max_batch_bytes // _row_bytes(mode, K, C, F))
         for a in range(0, len(codes), bsz):
             chunk = torch.from_numpy(codes[a:a + bsz]).to(dev)
-            valid = kio[None, :] < (inc.code_offsets[chunk + 1]
-                                    - inc.code_offsets[chunk])[:, None]
-            pos = torch.where(valid, inc.code_offsets[chunk][:, None] + kio, 0)
-            km = torch.where(valid, inc.code_kmers[pos], -1)
-            cl = _gather_lists(inc, km, valid, C)
+            pos, valid, cl = batch_lists(inc, chunk, K, C)
             if mode == "pair":
                 labels = cluster_batch(cl, valid, min_share, max_batch_bytes)
             else:
-                friends = _friends(cl, chunk, inc.n_codes, min_friend_share,
-                                   max_friends)
-                labels = friend_union_batch(cl, valid, friends)
+                labels = friend_union_batch(cl, valid, table[chunk])
             out[pos[valid]] = labels[valid]
     return out

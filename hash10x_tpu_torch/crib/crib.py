@@ -9,20 +9,24 @@ in exactly one) / MUL (multi-copy) / ERR (absent from both), so cluster
 purity and haplotype phasing can be scored.
 
 Genome hashing runs through the sketch kernel's dense kmer mode
-(``kernels.minimizer.sketch``): sequences stream in rows of ``_CHUNK`` bases
-with a k - 1 overlap, so every genome k-mer is hashed in exactly one row.
-On a CUDA device a row group is as tall as the genome allows (``_ROWS``),
-so a haplotype takes few launches of the kernel and of the lookup around
-it; results do not depend on the height.
+(``kernels.minimizer.sketch``): each FASTA record is read as base codes
+(``bytes.translate`` as the file streams), copied to the device once, and
+cut there into rows of ``_CHUNK`` bases with a k - 1 overlap, so every
+genome k-mer is hashed in exactly one row.  On a CUDA device a row group
+is as tall as a record allows (``_ROWS``: a 100 Mb record is one launch
+of the kernel and of the lookup around it); results do not depend on the
+height.
 The lookup is a ``searchsorted`` against the sorted retained keys, and the
 multiplicity and first position of each retained k-mer accumulate on the
-device.  ``Crib`` holds host numpy arrays and ``crib_report`` is host numpy,
-as in the JAX package.
+device.  ``Crib`` holds host numpy arrays, as in the JAX package;
+``crib_report`` computes on the incidence's device (one line per molecule,
+millions on a real lane) and renders its lines through ``utils/text.py``.
 """
 
 from __future__ import annotations
 
 import sys
+import warnings
 from dataclasses import dataclass
 from typing import List, Sequence
 
@@ -30,10 +34,11 @@ import numpy as np
 import torch
 
 from .. import INT64_MAX
-from ..core.encode import ascii_to_codes
+from ..core.encode import CODE_TABLE
 from ..hashspec import HashSpec
 from ..io.fastq import fasta_records
 from ..kernels import minimizer
+from ..utils.text import write_rows
 
 __all__ = ["Crib", "build_crib", "crib_report", "genome_kmer_counts",
            "HOM", "HET1", "HET2", "MUL", "ERR", "LABEL_NAMES"]
@@ -112,35 +117,31 @@ def genome_kmer_counts(spec: HashSpec, retained: torch.Tensor, path,
     first_pos = torch.full((nk,), INT64_MAX, dtype=torch.int64, device=dev)
     k = spec.k
     step = _CHUNK - (k - 1)
-
-    chunks = []  # (record codes, start, global genome offset of chunk)
     rec_starts, rec_names = [], []
     genome_off = 0
-    for name, seq in fasta_records(path):
+    for name, seq in fasta_records(path, table=CODE_TABLE):
         rec_starts.append(genome_off)
         if isinstance(name, bytes):
             name = name.decode("utf-8", "replace")
         rec_names.append(name.split()[0] if name else f"rec{len(rec_names)}")
-        codes = ascii_to_codes(seq)
-        n = len(codes)
+        n = len(seq)
         if n >= k:
-            for s in range(0, max(n - k + 1, 1), step):
-                chunks.append((codes, s, genome_off + s))
+            # rows start every ``step`` bases; the record goes to the
+            # device once and its rows are views of it, padded with code 4
+            n_rows = -(-(n - k + 1) // step)
+            codes = torch.full(((n_rows - 1) * step + _CHUNK,), 4,
+                               dtype=torch.uint8, device=dev)
+            with warnings.catch_warnings():   # read only: copied at once
+                warnings.simplefilter("ignore")
+                codes[:n] = torch.frombuffer(seq, dtype=torch.uint8)
+            starts = torch.arange(n_rows, device=dev) * step
+            lens = torch.clamp(n - starts, max=_CHUNK).to(torch.int32)
+            view = codes.unfold(0, _CHUNK, step)
+            for g in range(0, n_rows, rows):
+                _scan_group(spec, counts, first_pos,
+                            view[g:g + rows].contiguous(), lens[g:g + rows],
+                            genome_off + starts[g:g + rows], retained)
         genome_off += n
-
-    for g in range(0, len(chunks), rows):
-        group = chunks[g:g + rows]
-        batch = np.full((len(group), _CHUNK), 4, np.uint8)
-        lens = np.zeros(len(group), np.int32)
-        offs = np.zeros(len(group), np.int64)
-        for bi, (codes, s, goff) in enumerate(group):
-            piece = codes[s:s + _CHUNK]
-            batch[bi, :len(piece)] = piece
-            lens[bi] = len(piece)
-            offs[bi] = goff
-        _scan_group(spec, counts, first_pos, torch.from_numpy(batch).to(dev),
-                    torch.from_numpy(lens).to(dev),
-                    torch.from_numpy(offs).to(dev), retained)
     counts = counts.cpu().numpy().astype(np.uint32)
     if with_positions:
         fp = first_pos.cpu().numpy()
@@ -176,15 +177,33 @@ def build_crib(spec: HashSpec, retained: torch.Tensor, paths: Sequence,
                 rec_names=rec_names)
 
 
-def _segment_percentile(sorted_vals: np.ndarray, seg_off: np.ndarray,
-                        seg_len: np.ndarray, q: float) -> np.ndarray:
-    """np.percentile(.., q, method='linear') per contiguous segment."""
-    pos = (seg_len - 1) * (q / 100.0)
-    i0 = np.floor(pos).astype(np.int64)
-    frac = pos - i0
+def _segment_percentile(sorted_vals: torch.Tensor, seg_off: torch.Tensor,
+                        seg_len: torch.Tensor, q: float) -> torch.Tensor:
+    """np.percentile(.., q, method='linear') per contiguous segment, in
+    float64 with numpy's operations in numpy's order."""
+    pos = (seg_len - 1).to(torch.float64) * (q / 100.0)
+    i0 = torch.floor(pos).to(torch.int64)
+    frac = pos - i0.to(torch.float64)
     lo = sorted_vals[seg_off + i0]
-    hi = sorted_vals[np.minimum(seg_off + i0 + 1, seg_off + seg_len - 1)]
-    return lo + frac * (hi - lo)
+    hi = sorted_vals[torch.minimum(seg_off + i0 + 1, seg_off + seg_len - 1)]
+    return lo.to(torch.float64) + frac * (hi - lo).to(torch.float64)
+
+
+def _purity_thousandths(dom: torch.Tensor, het: torch.Tensor) -> torch.Tensor:
+    """``f"{dom / het:.3f}"`` as an integer count of thousandths, -1 where
+    het is 0.  Integer rounding of 1000 * dom / het agrees with rounding
+    the double dom / het except at exact ties (2000 * dom an odd multiple
+    of het), where the double lies on either side of the tie or on it: those
+    rows take Python's formatting of the double."""
+    h = torch.clamp(het, min=1)
+    r = (2000 * dom + h) // (2 * h)
+    tie = ((2000 * dom) % (2 * h) == h) & (het > 0)
+    idx = torch.nonzero(tie).squeeze(1)
+    if idx.numel():
+        fixed = [int(f"{d / t:.3f}".replace(".", "")) for d, t in
+                 zip(dom[idx].tolist(), het[idx].tolist())]
+        r[idx] = torch.tensor(fixed, dtype=torch.int64, device=r.device)
+    return torch.where(het > 0, r, -1)
 
 
 def crib_report(inc, clusters: torch.Tensor, crib: Crib,
@@ -192,76 +211,67 @@ def crib_report(inc, clusters: torch.Tensor, crib: Crib,
     """Per-cluster label composition + haplotype purity (the crib half of
     ``--clusterReport``), from the port's incidence and flat labels.
     Purity = dominant-haplotype fraction among HET k-mers; clusters with no
-    HET k-mers report purity -.  Host numpy over the flat (code, cluster)
-    key space; spans are inner-80% hap1 positions within each cluster's
-    dominant chromosome.  Returns the number of clusters reported."""
-    code_offsets = inc.code_offsets.cpu().numpy()
-    code_kmers = inc.code_kmers.cpu().numpy()
+    HET k-mers report purity -.  Computed on the incidence's device over the
+    flat (code, cluster) key space; spans are inner-80% hap1 positions
+    within each cluster's dominant chromosome.  Returns the number of
+    clusters reported."""
+    dev = inc.device
     comp = crib.composition()
     out.write("crib totals " + " ".join(
         f"{LABEL_NAMES[l]} {int(comp[l])}" for l in range(5)) + "\n")
-    n_pairs = len(code_kmers)
-    flat_cl = clusters.cpu().numpy().astype(np.int64) if n_pairs \
-        else np.zeros(0, np.int64)
-    code_of_p = np.repeat(np.arange(inc.n_codes, dtype=np.int64),
-                          np.diff(code_offsets))
-    K = int(flat_cl.max()) + 1 if n_pairs else 1
-    combined = code_of_p * K + flat_cl
-    # global cluster ids in (code, cluster) order — the report's line order
-    uniq, gid, csize = np.unique(combined, return_inverse=True,
-                                 return_counts=True)
-    G = len(uniq)
-    lab_of_p = crib.labels[code_kmers].astype(np.int64)
-    lc = np.bincount(gid * 5 + lab_of_p, minlength=G * 5).reshape(G, 5)
+    if inc.n_pairs == 0:
+        return 0
+    km = inc.code_kmers
+    flat_cl = clusters.to(torch.int64)
+    K = int(flat_cl.max()) + 1
+    # global cluster ids in (code, cluster) order: the report's line order
+    uniq, gid, csize = torch.unique(inc.code_of_pair() * K + flat_cl,
+                                    sorted=True, return_inverse=True,
+                                    return_counts=True)
+    G = uniq.shape[0]
+    lab_of_p = torch.from_numpy(crib.labels).to(dev)[km].to(torch.int64)
+    lc = torch.bincount(gid * 5 + lab_of_p, minlength=G * 5).reshape(G, 5)
     h1, h2 = lc[:, HET1], lc[:, HET2]
     het = h1 + h2
-    dom = np.maximum(h1, h2)
-    spans = np.full(G, -1, np.int64)
-    chrom_g = np.full(G, -1, np.int64)
-    if crib.positions is not None and n_pairs:
-        pp = crib.positions[code_kmers]
+    dom = torch.maximum(h1, h2)
+    spans = torch.full((G,), -1, dtype=torch.int64, device=dev)
+    chrom_g = torch.full((G,), -1, dtype=torch.int64, device=dev)
+    n_rec = len(crib.rec_starts) if crib.rec_starts is not None else 0
+    if crib.positions is not None and n_rec:
+        pp = torch.from_numpy(crib.positions).to(dev)[km]
         ok = pp >= 0
         gv, pv = gid[ok], pp[ok]
-        cv = crib.chrom_of(pv)
-        n_rec = len(crib.rec_starts) if crib.rec_starts is not None else 0
-        if n_rec and len(gv):
+        starts = torch.from_numpy(crib.rec_starts).to(dev)
+        cv = torch.searchsorted(starts, pv, right=True) - 1
+        if gv.numel():
             # dominant chrom per cluster: most k-mers, smallest id on ties
-            key = gv * n_rec + cv
-            ukey, kcnt = np.unique(key, return_counts=True)
+            ukey, kcnt = torch.unique(gv * n_rec + cv, return_counts=True)
             u_g, u_c = ukey // n_rec, ukey % n_rec
-            order = np.lexsort((u_c, -kcnt, u_g))
-            first = np.concatenate([[True], u_g[order][1:] != u_g[order][:-1]])
-            chrom_g[u_g[order][first]] = u_c[order][first]
+            best = torch.full((G,), -1, dtype=torch.int64, device=dev)
+            best.scatter_reduce_(0, u_g, kcnt * n_rec + (n_rec - 1 - u_c),
+                                 "amax")
+            chrom_g = torch.where(best >= 0, n_rec - 1 - best % n_rec, -1)
             # spans over record-LOCAL positions of the dominant chrom only
             keep = cv == chrom_g[gv]
             gv2 = gv[keep]
-            pv2 = pv[keep] - crib.rec_starts[cv[keep]]
-            order2 = np.lexsort((pv2, gv2))
-            gv2, pv2 = gv2[order2], pv2[order2]
-            seg_len = np.bincount(gv2, minlength=G)
-            seg_off = np.concatenate([[0], np.cumsum(seg_len)])[:-1]
+            pv2 = pv[keep] - starts[cv[keep]]
+            o = torch.argsort(pv2, stable=True)
+            o = o[torch.argsort(gv2[o], stable=True)]
+            pv2 = pv2[o]
+            seg_len = torch.bincount(gv2, minlength=G)
+            seg_off = torch.cumsum(seg_len, 0) - seg_len
             enough = seg_len >= 5
-            if enough.any():
-                p90 = _segment_percentile(pv2, seg_off[enough],
-                                          seg_len[enough], 90)
-                p10 = _segment_percentile(pv2, seg_off[enough],
-                                          seg_len[enough], 10)
-                spans[enough] = (p90 - p10).astype(np.int64)
-    names = crib.rec_names or []
-    # one line per cluster, formatted from Python lists: indexing numpy
-    # scalars per line took ~5 s of a 6 s report at 459k clusters
-    lines = []
-    for code, lab, n, hom, a, b, mul, err, d, ht, sp, ch in zip(
-            *(x.tolist() for x in (uniq // K, uniq % K, csize, lc[:, HOM],
-                                   h1, h2, lc[:, MUL], lc[:, ERR], dom, het,
-                                   spans, chrom_g))):
-        pstr = f"{d / ht:.3f}" if ht else "-"
-        sstr = str(sp) if sp >= 0 else "-"
-        cstr = names[ch] if 0 <= ch < len(names) else "-"
-        lines.append(
-            f"code {code} cluster {lab} n {n} hom {hom} het1 {a} het2 {b} "
-            f"mul {mul} err {err} purity {pstr} chrom {cstr} span {sstr}\n")
-    out.write("".join(lines))
+            sl, so = seg_len[enough], seg_off[enough]
+            spans[enough] = (_segment_percentile(pv2, so, sl, 90)
+                             - _segment_percentile(pv2, so, sl, 10)
+                             ).to(torch.int64)
+    write_rows(out, [
+        b"code ", ("d", uniq // K), b" cluster ", ("d", uniq % K), b" n ",
+        ("d", csize), b" hom ", ("d", lc[:, HOM]), b" het1 ", ("d", h1),
+        b" het2 ", ("d", h2), b" mul ", ("d", lc[:, MUL]), b" err ",
+        ("d", lc[:, ERR]), b" purity ", ("f3", _purity_thousandths(dom, het)),
+        b" chrom ", ("s", chrom_g, crib.rec_names or []), b" span ",
+        ("d-", spans), b"\n"], G, dev)
     total_het = int(het.sum())
     if total_het:
         out.write(f"crib overall purity {int(dom.sum()) / total_het:.4f} "

@@ -71,21 +71,49 @@ def read_fasta(path, with_names: bool = True) -> ReadBatch:
     return _pack_seqs(seqs, 0, names if with_names else None)
 
 
-def fasta_records(path):
-    """Yield (name: bytes, sequence: bytes) per FASTA record, streaming."""
-    name, chunks = None, []
+_FASTA_BLOCK = 1 << 26   # bytes read at once by fasta_records
+
+
+def fasta_records(path, block: int = _FASTA_BLOCK, table: bytes = None):
+    """Yield (name: bytes, sequence: bytes) per FASTA record, streaming.
+
+    The file is read ``block`` bytes at a time.  A line starting with
+    ``>`` is a header, whose name is the text after ``>`` up to the first
+    space; the lines between headers are the record's sequence with their
+    newlines removed, one ``bytes.translate`` per run of lines (through
+    ``table`` where one is given: the crib reads base codes so), so a
+    sequence may be cut anywhere between blocks and no block is copied
+    whole.  Text before the first header is dropped."""
+    name, parts, head, line_start = None, [], None, True
     with _open(path) as f:
-        for line in f:
-            line = line.rstrip(b"\n")
-            if line.startswith(b">"):
-                if name is not None:
-                    yield name, b"".join(chunks)
-                name = line[1:].split(b" ")[0]
-                chunks = []
-            else:
-                chunks.append(line)
+        while True:
+            data = f.read(block)
+            if not data:
+                break
+            pos, n = 0, len(data)
+            while pos < n:
+                if head is not None:          # inside a header line
+                    end = data.find(b"\n", pos)
+                    head += data[pos:n if end < 0 else end]
+                    if end < 0:
+                        break
+                    if name is not None:
+                        yield name, b"".join(parts)
+                    name, parts, head = head.split(b" ")[0], [], None
+                    pos, line_start = end + 1, True
+                elif line_start and data[pos] == 62:    # ">"
+                    head, pos = b"", pos + 1
+                else:
+                    nxt = data.find(b"\n>", pos)
+                    stop = n if nxt < 0 else nxt + 1
+                    parts.append(data[pos:stop].translate(table, b"\n"))
+                    pos, line_start = stop, data[stop - 1] == 10
+    if head is not None:
+        if name is not None:
+            yield name, b"".join(parts)
+        name, parts = head.split(b" ")[0], []
     if name is not None:
-        yield name, b"".join(chunks)
+        yield name, b"".join(parts)
 
 
 def _pack_seqs(seqs: List[bytes], max_len: int, names) -> ReadBatch:

@@ -20,7 +20,8 @@ __all__ = ["write_rows", "write_report"]
 
 ROWS = 1 << 21   # lines rendered at once (bounds the byte matrices)
 
-Part = Union[bytes, Tuple[str, torch.Tensor]]
+Part = Union[bytes, Tuple[str, torch.Tensor],
+             Tuple[str, torch.Tensor, Sequence[str]]]
 
 
 def _digits(v: torch.Tensor, base: int):
@@ -43,40 +44,82 @@ def _digits(v: torch.Tensor, base: int):
     return chars, j[None, :] >= (D - shown)[:, None]
 
 
+def _literal(p: bytes, n: int, device):
+    lit = torch.tensor(list(p), dtype=torch.uint8, device=device)
+    return lit.expand(n, len(p)), torch.ones((n, len(p)), dtype=torch.bool,
+                                             device=device)
+
+
+def _thousandths(v: torch.Tensor):
+    """``v / 1000`` with three decimals: the integer part, a point and
+    three digits."""
+    m, k = _digits(v // 1000, 10)
+    pows = torch.tensor([100, 10, 1], dtype=torch.int64, device=v.device)
+    frac = ((v % 1000)[:, None] // pows % 10 + 48).to(torch.uint8)
+    point, ones = _literal(b".", v.shape[0], v.device)
+    return (torch.cat([m, point, frac], 1),
+            torch.cat([k, ones, torch.ones_like(frac, dtype=torch.bool)], 1))
+
+
+def _names(idx: torch.Tensor, names: Sequence[str]):
+    """``names[idx]`` (UTF-8) per line, ``-`` where idx is outside the
+    table."""
+    enc = [x.encode() for x in names] + [b"-"]
+    width = max(len(x) for x in enc)
+    table = torch.zeros((len(enc), width), dtype=torch.uint8)
+    for i, x in enumerate(enc):
+        table[i, :len(x)] = torch.tensor(list(x), dtype=torch.uint8)
+    lens = torch.tensor([len(x) for x in enc], device=idx.device)
+    row = torch.where((idx >= 0) & (idx < len(names)), idx, len(names))
+    m = table.to(idx.device)[row]
+    return m, torch.arange(width, device=idx.device)[None, :] \
+        < lens[row][:, None]
+
+
 def _render(parts: Sequence[Part], n: int, device):
     """The ``n`` lines made of ``parts``, one after another: ``bytes``
     (the same literal on every line), ``("d", v)`` / ``("x", v)`` (the
     decimal / lowercase hex of each line's value of the int64 ``v``,
-    non-negative) and ``("c", ch)`` (one uint8 character per line, none
-    where 0).  Returns (the lines' bytes as one uint8 tensor, each line's
-    byte count)."""
+    non-negative), ``("c", ch)`` (one uint8 character per line, none
+    where 0), and, each printing ``-`` where its value is negative,
+    ``("d-", v)`` (decimal), ``("f3", v)`` (``v / 1000`` with three
+    decimals) and ``("s", idx, names)`` (the string ``names[idx]``).
+    Returns (the lines' bytes as one uint8 tensor, each line's byte
+    count)."""
     mats: List[torch.Tensor] = []
     masks: List[torch.Tensor] = []
     for p in parts:
         if isinstance(p, bytes):
-            lit = torch.tensor(list(p), dtype=torch.uint8, device=device)
-            mats.append(lit.expand(n, len(p)))
-            masks.append(torch.ones((n, len(p)), dtype=torch.bool,
-                                    device=device))
+            m, k = _literal(p, n, device)
         elif p[0] == "c":
-            mats.append(p[1][:, None])
-            masks.append(p[1][:, None] != 0)
+            m, k = p[1][:, None], p[1][:, None] != 0
+        elif p[0] in ("d-", "f3", "s"):
+            v = p[1].to(torch.int64)
+            neg = v < 0
+            if p[0] == "s":
+                m, k = _names(v, p[2])
+            else:
+                m, k = (_thousandths if p[0] == "f3" else
+                        lambda x: _digits(x, 10))(torch.clamp(v, min=0))
+            dash, _ = _literal(b"-", n, device)
+            m = torch.cat([m, dash], 1)
+            k = torch.cat([k & ~neg[:, None], neg[:, None]], 1)
         else:
             m, k = _digits(p[1].to(torch.int64), 16 if p[0] == "x" else 10)
-            mats.append(m)
-            masks.append(k)
+        mats.append(m)
+        masks.append(k)
     mask = torch.cat(masks, 1)
     return torch.cat(mats, 1)[mask], mask.sum(1)
 
 
 def _emit(out, flat: torch.Tensor) -> None:
-    """Write the ASCII bytes ``flat`` to the text stream ``out``: straight
+    """Write the UTF-8 bytes ``flat`` to the text stream ``out``: straight
     to its binary buffer where it has one (a file), skipping a decode and
     an encode of every byte."""
     data = flat.cpu().numpy()
     buffer = getattr(out, "buffer", None)
     if buffer is None:
-        out.write(data.tobytes().decode("ascii"))
+        out.write(data.tobytes().decode())
         return
     out.flush()
     buffer.write(data.data)
@@ -88,7 +131,7 @@ def write_rows(out, columns: Sequence[Part], n: int, device) -> None:
     ``ROWS`` lines at a time."""
     for a in range(0, n, ROWS):
         b = min(a + ROWS, n)
-        block = [p if isinstance(p, bytes) else (p[0], p[1][a:b])
+        block = [p if isinstance(p, bytes) else (p[0], p[1][a:b], *p[2:])
                  for p in columns]
         _emit(out, _render(block, b - a, device)[0])
 

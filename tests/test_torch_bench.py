@@ -178,6 +178,53 @@ def test_plan_names_skipped_and_failed_points(points, tmp_path):
     assert json.loads(lines[-1])["skipped"] == summ.skipped
 
 
+@pytest.mark.parametrize("outcome,rc", [("ran", 0), ("budget", 0),
+                                        ("raised", 1)])
+def test_main_exits_1_when_a_point_raised(monkeypatch, tmp_path, capsys,
+                                          outcome, rc):
+    """``main`` with the card's calls stubbed: every point runs, or one is
+    skipped for the budget (exit 0), or one raises (exit 1, after the
+    points behind it ran and the final summary line was printed)."""
+    ran = []
+
+    def point(name):
+        def fn(*a, **kw):
+            if outcome == "raised" and name == "routing":
+                raise RuntimeError("lane overflow")
+            ran.append(name)
+            return {"name": name}
+        return fn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(B, "card_info", lambda: {})
+    monkeypatch.setattr(B, "c_ref_exe", lambda tmp: "c_ref")
+    monkeypatch.setattr(B, "make_lane", lambda: np.zeros((4, 150), np.uint8))
+    monkeypatch.setattr(B, "bench_c", lambda *a: {"reads_per_s": 1.0})
+    monkeypatch.setattr(B, "bench_engine", lambda *a: (
+        {"name": "hot", "reads_per_s": 2.0}, {"name": "cold"}))
+    monkeypatch.setattr(B, "launch_floor_ms", lambda d: {"median": 0.01})
+    for fn, name in (("bench_barcodes", "barcodes"),
+                     ("bench_breakdown", "breakdown"),
+                     ("bench_routing_ab", "routing"),
+                     ("bench_cluster", "cluster"),
+                     ("bench_shards_curve", "shards")):
+        monkeypatch.setattr(B, fn, point(name))
+    summary = B.Summary
+    monkeypatch.setattr(B, "Summary", lambda budget, info: summary(
+        budget, info, detail=tmp_path / "d.json", out=sys.stdout))
+    if outcome == "budget":
+        monkeypatch.setitem(B.ESTIMATES, "cluster_200k_codes", 1e9)
+    assert B.main() == rc
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["final"] is True
+    want = ["barcodes", "breakdown", "routing", "cluster", "shards"]
+    if outcome == "raised":
+        want.remove("routing")
+    if outcome == "budget":
+        want.remove("cluster")
+        assert last["skipped"][0]["reason"].startswith("budget: ")
+    assert ran == want
+
+
 def test_bench_never_writes_the_jax_bench_detail(points, tmp_path):
     assert B.DETAIL == ROOT / "chiprun_out" / "bench_torch_detail.json"
     jax_detail = ROOT / "BENCH_DETAIL.json"
