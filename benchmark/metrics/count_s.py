@@ -1,0 +1,8 @@
+"""count_s: seconds per pass in Engine.count (the span ``count``, the
+device synchronised on both sides), the mean over the window's passes."""
+
+from benchmark.readers import span_mean
+
+
+def read(ctx):
+    return span_mean(ctx, "count")

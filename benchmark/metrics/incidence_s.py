@@ -1,0 +1,9 @@
+"""incidence_s: seconds per pass in Engine.filter and Engine.incidence (the
+span ``incidence``, the device synchronised on both sides), the mean over
+the window's passes."""
+
+from benchmark.readers import span_mean
+
+
+def read(ctx):
+    return span_mean(ctx, "incidence")
