@@ -1940,41 +1940,28 @@ def host_rss_gb():
 class StageProbe:
     """Per-call wall, peak device memory (``max_memory_allocated``, reset
     at the start of each call), ``memory_reserved``, host RSS, table
-    flushes, the largest table capacity a flush left, and the walls spent
-    in the flushes and in building the lane on the device (each
-    synchronised on both sides), for the Engine's public commands while it
-    is installed (the CLI calls them, so a CLI run reports per stage
-    without a flag of its own).  A command called inside another counts in
-    the outer one."""
+    flushes, the count table's capacity after the call, and the seconds
+    spent building the lane on the device and in the flushes, for the
+    Engine's public commands while it is installed (the CLI calls them, so
+    a CLI run reports per stage without a flag of its own).  The lane and
+    flush seconds and the flushes come from the engine's ``stats`` (the
+    program's spans ``lane``, host clock, and ``table.flush``, stream
+    seconds); the wall is synchronised on both sides.  A command called
+    inside another counts in the outer one."""
 
     METHODS = ("count", "info", "filter", "incidence", "cluster", "split",
                "report", "write_counts", "write_clusters", "save")
 
-    def __init__(self, torch, Engine, st, extra=()):
-        self.torch, self.Engine, self.st = torch, Engine, st
+    def __init__(self, torch, Engine, extra=()):
+        self.torch, self.Engine = torch, Engine
         self.extra = extra   # (module, function name) probed as stages too
         self.rows = []
         self._saved = []
         self._depth = 0
-        self._cap = 0
-        self._sub = {"flush": 0.0, "lane": 0.0}
 
     def _patch(self, owner, name, fn):
         self._saved.append((owner, name, getattr(owner, name)))
         setattr(owner, name, fn)
-
-    def _timed(self, what, real):
-        """``real`` with its synchronised wall added to ``_sub[what]``."""
-        torch = self.torch
-
-        def timed(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            out = real(*a, **kw)
-            torch.cuda.synchronize()
-            self._sub[what] += time.monotonic() - t0
-            return out
-        return timed
 
     def __enter__(self):
         for name in self.METHODS:
@@ -1982,15 +1969,6 @@ class StageProbe:
                         self._wrap(name, getattr(self.Engine, name)))
         for owner, name in self.extra:
             self._patch(owner, name, self._wrap(name, getattr(owner, name)))
-        self._patch(self.Engine, "_lane",
-                    self._timed("lane", self.Engine._lane))
-        flush = self._timed("flush", self.st.flush_grow)
-
-        def flush_grow(t, *a, **kw):
-            out = flush(t, *a, **kw)
-            self._cap = max(self._cap, out.capacity)
-            return out
-        self._patch(self.st, "flush_grow", flush_grow)
         return self
 
     def __exit__(self, *exc):
@@ -1998,16 +1976,16 @@ class StageProbe:
             setattr(owner, name, real)
 
     def _wrap(self, name, real):
-        torch, st = self.torch, self.st
+        torch = self.torch
 
         def probed(*a, **kw):
             if self._depth:
                 return real(*a, **kw)
+            eng = a[0] if a and isinstance(a[0], self.Engine) else None
             self._depth += 1
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            f0, self._cap = st.FLUSHES, 0
-            self._sub = dict.fromkeys(self._sub, 0.0)
+            s0 = eng.stats if eng is not None else {}
             t0 = time.monotonic()
             try:
                 return real(*a, **kw)
@@ -2015,14 +1993,20 @@ class StageProbe:
                 torch.cuda.synchronize()
                 wall = time.monotonic() - t0
                 self._depth -= 1
+                s1 = eng.stats if eng is not None else {}
+
+                def diff(key):
+                    return s1.get(key, 0) - s0.get(key, 0)
+                t = eng.table if eng is not None else None
                 self.rows.append({
                     "stage": name, "wall_s": wall,
                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                     "reserved_gb": torch.cuda.memory_reserved() / 1e9,
                     "rss_gb": host_rss_gb()[0],
-                    "flushes": st.FLUSHES - f0, "flush_s": self._sub["flush"],
-                    "lane_s": self._sub["lane"],
-                    "max_table_slots": self._cap})
+                    "flushes": diff("flushes"),
+                    "flush_s": diff("table.flush.device_s"),
+                    "lane_s": diff("lane.host_s"),
+                    "table_slots": t.capacity if t is not None else 0})
         return probed
 
     def print(self, what):
@@ -2031,8 +2015,8 @@ class StageProbe:
                   f"(lane setup {r['lane_s']:.3f} s), peak device memory "
                   f"{r['peak_gb']:.2f} GB, reserved {r['reserved_gb']:.2f} "
                   f"GB, host RSS {r['rss_gb']:.2f} GB, flushes "
-                  f"{r['flushes']} ({r['flush_s']:.3f} s), largest table "
-                  f"{r['max_table_slots']} slots", flush=True)
+                  f"{r['flushes']} ({r['flush_s']:.3f} s), count table "
+                  f"{r['table_slots']} slots", flush=True)
 
 
 def graph_pool_gb(torch):
@@ -2148,7 +2132,6 @@ def phase_scale(torch, MK, ES, run, tmp):
     from hash10x_tpu_torch.cluster import sparse as SP
     from hash10x_tpu_torch.cluster import sparse_dist as SPD
     from hash10x_tpu_torch.engine import Engine
-    from hash10x_tpu_torch.table import sorted_table as st
     lane = make_lane20x(tmp)
     first = None
     one_gpu_launches = 0
@@ -2158,7 +2141,7 @@ def phase_scale(torch, MK, ES, run, tmp):
         argv = scale_argv(*flags, *scale_report(lane), "--writeCounts",
                           dumps[0], "--writeClusters", dumps[1])
         ES.REPLAYS = 0
-        with StageProbe(torch, Engine, st) as probe:
+        with StageProbe(torch, Engine) as probe:
             out, err, eng, launches, wall = run_counted(torch, MK, run, argv)
         n_batches = len(eng._lane_cache[3])
         steps, replays, graphs = check_replays(f"lane20x {what}", eng, ES,
@@ -2353,7 +2336,6 @@ def phase_paths(torch, MK, ES, run, tmp, lane=None, ref=None):
     from hash10x_tpu_torch.engine import Engine
     from hash10x_tpu_torch.hashspec import HashSpec
     from hash10x_tpu_torch.io import fqb as FB
-    from hash10x_tpu_torch.table import sorted_table as st
     if lane is None:
         lane = make_lane20x(tmp)
         out, _, eng, _, _ = run_counted(torch, MK, run,
@@ -2364,7 +2346,7 @@ def phase_paths(torch, MK, ES, run, tmp, lane=None, ref=None):
     n_lines = ref.count("\n")
 
     def probed(what, argv, extra=()):
-        with StageProbe(torch, Engine, st, extra) as probe:
+        with StageProbe(torch, Engine, extra) as probe:
             out, err, eng, launches, wall = run_counted(torch, MK, run,
                                                         argv)
         probe.print(what)
@@ -2511,7 +2493,6 @@ def phase_crib_scale(torch, MK, ES, run, tmp):
     from hash10x_tpu_torch.crib import crib as CR
     from hash10x_tpu_torch.engine import Engine
     from hash10x_tpu_torch.io.fqb import save_fqb
-    from hash10x_tpu_torch.table import sorted_table as st
     t0 = time.monotonic()
     fqb, haps = make_barcodes_lane_blocked(het_rate=CRIB_HET,
                                            return_haplotypes=True)
@@ -2535,7 +2516,7 @@ def phase_crib_scale(torch, MK, ES, run, tmp):
     argv = scale_argv("--readFQB", lane, "--codeClusters", "--clusterReport",
                       "--cribBuild", *fas, "--cribReport")
     out, err = io.StringIO(), StageLog(MK)
-    with StageProbe(torch, Engine, st, [(CR, "build_crib"),
+    with StageProbe(torch, Engine, [(CR, "build_crib"),
                                         (CR, "crib_report")]) as probe:
         MK.LAUNCHES = MK.PLAIN_CALLS = 0
         t0 = time.monotonic()

@@ -524,11 +524,13 @@ def bench_barcodes(n_reads: int, n_codes: int, device: torch.device,
         walls, counters = {}, {}
         eng.reset()
         walls["count_s"] = timed(device, lambda: eng.count(fqb))
-        counters["count"] = dict(eng.stats)
-        eng.stats = {"dispatches": 0, "flushes": 0}
+        keys = ("dispatches", "flushes")
+        c0 = eng.stats
+        counters["count"] = {k: c0[k] for k in keys}
         walls["filter_incidence_s"] = timed(
             device, lambda: (eng.filter(), eng.incidence(fqb)))
-        counters["incidence"] = dict(eng.stats)
+        c1 = eng.stats
+        counters["incidence"] = {k: c1[k] - c0[k] for k in keys}
         walls["cluster_s"] = timed(device, eng.cluster)
         walls["split_s"] = timed(device, eng.split)
         out = io.StringIO()

@@ -45,7 +45,11 @@ Parameters (take effect for later commands):
                        barcode-aligned blocks of ~n pairs (full-lane scale)
   --errorFixReads <m>  rescue threshold for --errorFix (0 = drop-only)
   --metrics <file>     append per-command JSONL metrics (set before the
-                       first command that creates the engine)
+                       first command that creates the engine); each record
+                       adds "spans" ({name: {host_s, device_s, n}} of the
+                       spans inside the command; device_s on CUDA, for the
+                       flush and clustering spans) and "counters" (steps,
+                       flushes, graph captures, sorted keys, lane bytes)
   --devMem             add the device memory torch holds to the
                        per-command lines (CUDA only)
   --profile <dir>      torch.profiler trace (CPU + CUDA) of all later

@@ -27,16 +27,21 @@ proportional to the pair set, never n_codes^2:
 
 On the GPU plain gathers and ``scatter_reduce(amin)`` are the natural form;
 the JAX package's sort-only joins were TPU workarounds.
+
+Spans of the current timer (``utils/timing.py``; the engine's while it
+clusters): ``cluster.cooccur`` (steps 1-2) with a ``cluster.cooccur.reduce``
+per reduction, ``cluster.friends`` (3), ``cluster.edges`` (4) and a
+``cluster.round`` per propagation round (5).  Every device sort adds its
+elements to the counter ``sorted_keys``.
 """
 
 from __future__ import annotations
-
-import time
 
 import torch
 
 from ..table.incidence import Incidence
 from ..table.sorted_table import segment_sum_sorted
+from ..utils import timing
 from ..utils.dense import device_dense_ranks, distinct_below
 
 __all__ = ["cooccurrence_counts", "friend_pairs", "friend_keys",
@@ -50,10 +55,9 @@ _EDGE_BLOCK = 1 << 25
 _BIG = (1 << 62)
 
 # host figures of the last clustering, read by callers that report them:
-# co-occurrence keys ("cooccur_keys") and the wall of each of their
-# reductions ("reduce_s"), friend keys in both orders ("friend_keys"),
-# edges ("edges"), their blocks ("edge_blocks") and propagation rounds
-# ("rounds")
+# co-occurrence keys ("cooccur_keys"), friend keys in both orders
+# ("friend_keys"), edges ("edges"), their blocks ("edge_blocks") and
+# propagation rounds ("rounds")
 STATS: dict = {}
 
 
@@ -63,6 +67,7 @@ class _ShiftJoin:
     def __init__(self, inc: Incidence):
         dev = inc.device
         lens = torch.diff(inc.kmer_offsets)
+        timing.add("sorted_keys", lens.shape[0])
         order = torch.argsort(-lens, stable=True)
         sl = lens[order]
         new_off = torch.cat([sl.new_zeros(1), torch.cumsum(sl, 0)])
@@ -96,23 +101,22 @@ class _ShiftJoin:
 def cooccurrence_counts(inc: Incidence, chunk: int = _CHUNK):
     """Sorted c1 < c2 co-occurrence keys c1 * n_codes + c2 and their shares
     (the number of k-mers both barcodes hold)."""
-    sj = _ShiftJoin(inc)
-    return _cooccur(sj, inc.n_codes, chunk)
+    with timing.span("cluster.cooccur", device=True):
+        return _cooccur(_ShiftJoin(inc), inc.n_codes, chunk)
 
 
 def _cooccur(sj: _ShiftJoin, n_codes: int, chunk: int):
     keys, weights = [], []
     held = 0
 
-    walls = STATS.setdefault("reduce_s", [])
-
     def reduce():
-        t0 = time.monotonic()
-        s, order = torch.sort(torch.cat(keys), stable=True)
-        u, w = segment_sum_sorted(s, torch.cat(weights)[order])
-        keys[:], weights[:] = [u], [w]
-        walls.append(round(time.monotonic() - t0, 4))
-        return u.shape[0]
+        with timing.span("cluster.cooccur.reduce"):
+            s = torch.cat(keys)
+            timing.add("sorted_keys", s.shape[0])
+            s, order = torch.sort(s, stable=True)
+            u, w = segment_sum_sorted(s, torch.cat(weights)[order])
+            keys[:], weights[:] = [u], [w]
+            return u.shape[0]
 
     for d in range(1, sj.D):
         c1, c2, _ = sj.pairs(d)
@@ -138,9 +142,11 @@ def friend_pairs(pair_keys: torch.Tensor, shares: torch.Tensor,
 def friend_keys(keys: torch.Tensor, shares: torch.Tensor, n_codes: int,
                 min_friend_share: int) -> torch.Tensor:
     """Sorted friend pair keys, both orders, from the c1 < c2 counts."""
-    f1 = friend_pairs(keys, shares, min_friend_share)
-    f2 = (f1 % n_codes) * n_codes + f1 // n_codes
-    return torch.sort(torch.cat([f1, f2])).values
+    with timing.span("cluster.friends"):
+        f1 = friend_pairs(keys, shares, min_friend_share)
+        f2 = (f1 % n_codes) * n_codes + f1 // n_codes
+        timing.add("sorted_keys", 2 * f1.shape[0])
+        return torch.sort(torch.cat([f1, f2])).values
 
 
 def _forward_positions(inc: Incidence) -> torch.Tensor:
@@ -186,20 +192,27 @@ def propagate_labels(p_e: torch.Tensor, f_e: torch.Tensor, n_p: int, n_f: int,
     STATS["rounds"] = 0
     while True:
         STATS["rounds"] += 1
-        f_lab = torch.full((n_f,), _BIG, dtype=torch.int64, device=dev)
-        for s in range(0, E, edge_block):
-            blk = slice(s, s + edge_block)
-            f_lab.scatter_reduce_(0, f_e[blk], lab[p_e[blk]], "amin")
-        back = torch.full((n_p,), _BIG, dtype=torch.int64, device=dev)
-        for s in range(0, E, edge_block):
-            blk = slice(s, s + edge_block)
-            back.scatter_reduce_(0, p_e[blk], f_lab[f_e[blk]], "amin")
-        new = torch.minimum(lab, back)
-        new = torch.minimum(new, new[new])   # pointer jump x2
-        new = torch.minimum(new, new[new])
-        if torch.equal(new, lab):
-            return lab
+        with timing.span("cluster.round", device=True):
+            new = _round(p_e, f_e, lab, n_p, n_f, edge_block)
+            if torch.equal(new, lab):
+                return lab
         lab = new
+
+
+def _round(p_e, f_e, lab, n_p: int, n_f: int, edge_block: int):
+    """One round of :func:`propagate_labels`: the new labels."""
+    dev, E = p_e.device, p_e.shape[0]
+    f_lab = torch.full((n_f,), _BIG, dtype=torch.int64, device=dev)
+    for s in range(0, E, edge_block):
+        blk = slice(s, s + edge_block)
+        f_lab.scatter_reduce_(0, f_e[blk], lab[p_e[blk]], "amin")
+    back = torch.full((n_p,), _BIG, dtype=torch.int64, device=dev)
+    for s in range(0, E, edge_block):
+        blk = slice(s, s + edge_block)
+        back.scatter_reduce_(0, p_e[blk], f_lab[f_e[blk]], "amin")
+    new = torch.minimum(lab, back)
+    new = torch.minimum(new, new[new])   # pointer jump x2
+    return torch.minimum(new, new[new])
 
 
 def canonical_ranks(inc: Incidence, labels: torch.Tensor) -> torch.Tensor:
@@ -211,6 +224,7 @@ def canonical_ranks(inc: Incidence, labels: torch.Tensor) -> torch.Tensor:
     K = int(labels.max()) + 1
     base = inc.code_of_pair() * K
     combined = base + labels
+    timing.add("sorted_keys", combined.shape[0])
     s = torch.sort(combined).values
     is_new = torch.cat([s.new_ones(1, dtype=torch.bool), s[1:] != s[:-1]])
     return (distinct_below(s, is_new, combined)
@@ -225,13 +239,15 @@ def cluster_codes_sparse(inc: Incidence, min_friend_share: int = 8,
     STATS.clear()
     if inc.n_pairs == 0:
         return inc.code_kmers.new_zeros(0)
-    sj = _ShiftJoin(inc)
-    keys, shares = _cooccur(sj, inc.n_codes, chunk)
+    with timing.span("cluster.cooccur", device=True):
+        sj = _ShiftJoin(inc)
+        keys, shares = _cooccur(sj, inc.n_codes, chunk)
     fkeys = friend_keys(keys, shares, inc.n_codes, min_friend_share)
     STATS["friend_keys"] = fkeys.shape[0]
     glob = torch.arange(inc.n_pairs, device=inc.device)
     if fkeys.shape[0]:
-        p_e, f_e = _edges(sj, inc, fkeys)
+        with timing.span("cluster.edges", device=True):
+            p_e, f_e = _edges(sj, inc, fkeys)
         glob = propagate_labels(p_e, f_e, inc.n_pairs, fkeys.shape[0],
                                 edge_block)
     local = glob - inc.code_offsets[inc.code_of_pair()]

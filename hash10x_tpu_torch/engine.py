@@ -40,10 +40,25 @@ send the same multi-batch steps, each batch routed in lanes of its own: a
 CUDA graph replay with one process, eager steps over several (their
 exchanges cross the host).
 
-``stats`` holds two host counters that read no device value: ``dispatches``
-(multi-batch steps sent to the device in count and incidence, sharded or
-not) and ``flushes`` (sort-merges of an append buffer into a table during
-them).
+``stats`` holds what the engine's timer (``utils/timing.py``) recorded since
+the engine was made or last reset, as flat numbers, none of them read from
+the device: the counters ``dispatches`` (multi-batch steps sent to the
+device in count and incidence, sharded or not), ``flushes`` (sort-merges of
+an append buffer into a table during the engine's stages),
+``graph_captures`` (step shapes captured into CUDA graphs), ``sorted_keys``
+(elements put through the main path's device sorts) and ``lane_bytes``
+(lane bytes copied to the device); and for each span name N, ``N.host_s``
+and ``N.n``.  The spans, on the host clock: ``count``, ``incidence``,
+``cluster``, ``split`` and ``report`` around those stages; ``lane`` (its
+children ``lane.order``, ``lane.batches``, ``lane.copy``: the host's barcode
+sort, batching and copy to the device); ``step`` (one multi-batch step's
+host dispatch) and its ``step.capture`` (a CUDA graph's warm-up and
+capture); ``table.flush`` (``table/sorted_table.py``); and
+``cluster.cooccur``, ``cluster.cooccur.reduce``, ``cluster.friends``,
+``cluster.edges`` and ``cluster.round`` (``cluster/sparse.py``).  On CUDA,
+``table.flush``, ``cluster.cooccur``, ``cluster.edges`` and
+``cluster.round`` also give ``N.device_s``: the stream's seconds between
+their marks.
 """
 
 from __future__ import annotations
@@ -71,11 +86,16 @@ from .table import sorted_table as st
 from .table.incidence import (Incidence, combined_key_bits,
                               finalize_combined_pairs,
                               incidence_from_sorted_pairs)
+from .utils import timing
 from .utils.dense import device_unique
 from .utils.text import write_report, write_rows
 from .utils.timing import StageTimer
 
 __all__ = ["Engine", "EngineConfig", "coverage_peaks"]
+
+# the counters ``Engine.stats`` always holds (0 until counted)
+COUNTERS = ("dispatches", "flushes", "graph_captures", "sorted_keys",
+            "lane_bytes")
 
 
 def coverage_peaks(hist: np.ndarray, min_frac: float = 0.05):
@@ -135,17 +155,15 @@ class EngineConfig:
                                      # Overflow is counted and raises
 
 
-def _counting_flushes(method):
-    """Add the table sort-merges made inside ``method`` to
-    ``stats["flushes"]``."""
-    @functools.wraps(method)
-    def wrapped(self, *args, **kwargs):
-        f0 = st.FLUSHES
-        try:
-            return method(self, *args, **kwargs)
-        finally:
-            self.stats["flushes"] += st.FLUSHES - f0
-    return wrapped
+def _span(name: str):
+    """Run the method inside the span ``name`` of the engine's timer."""
+    def deco(method):
+        @functools.wraps(method)
+        def wrapped(self, *args, **kwargs):
+            with self.timer.span(name):
+                return method(self, *args, **kwargs)
+        return wrapped
+    return deco
 
 
 class Engine:
@@ -181,7 +199,15 @@ class Engine:
         self.retained_counts = None
         self.inc = None   # and the sharded incidence, labels, split
         self.n_reads_counted = 0
-        self.stats = {"dispatches": 0, "flushes": 0}
+        self.timer.clear()
+
+    @property
+    def stats(self) -> dict:
+        """The counters and span totals recorded since the engine was made
+        or last reset (see the module docstring).  A span's ``device_s``
+        holds the spans whose end the stream has passed: read it after a
+        synchronisation to have them all."""
+        return {**dict.fromkeys(COUNTERS, 0), **self.timer.stats()}
 
     # -- whole views of the (possibly sharded) state -------------------------------
 
@@ -301,8 +327,15 @@ class Engine:
         batch streams alone as consecutive spans sharing a group id (None
         otherwise)."""
         bsz = bsz or self.cfg.batch_reads
-        order = np.argsort(fqb.barcode_ids, kind="stable")
-        bc_all = fqb.barcode_ids[order]
+        with timing.span("lane.order"):
+            order = np.argsort(fqb.barcode_ids, kind="stable")
+            bc_all = fqb.barcode_ids[order]
+        with timing.span("lane.batches"):
+            return order, self._batch_spans(bc_all, bsz)
+
+    @staticmethod
+    def _batch_spans(bc_all: np.ndarray, bsz: int):
+        """The batch spans of ``_spans`` over the sorted barcode ids."""
         n = len(bc_all)
         spans = []
         i = 0
@@ -326,7 +359,7 @@ class Engine:
                     continue
             spans.append((i, j, None))
             i = j
-        return order, spans
+        return spans
 
     def _lane(self, fqb: Fqb, bsz: int = 0):
         """The barcode-sorted lane on the device (packed words as int32,
@@ -337,15 +370,20 @@ class Engine:
         c = self._lane_cache
         if c is not None and c[0] is fqb and c[1] == bsz:
             return c[2], c[3]
-        order, spans = self._spans(fqb, bsz)
-        dev = self.device
+        with timing.span("lane"):
+            order, spans = self._spans(fqb, bsz)
+            dev = self.device
 
-        def put(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a[order])
-                                    .view(dtype)).to(dev)
-        lane = (put(fqb.packed, np.int32), put(fqb.lengths, np.int32),
-                put(fqb.barcode_ids.astype(np.int64), np.int64),
-                put(fqb.nmask, np.int32) if fqb.nmask is not None else None)
+            def put(a, dtype):
+                return torch.from_numpy(np.ascontiguousarray(a[order])
+                                        .view(dtype)).to(dev)
+            with timing.span("lane.copy"):
+                lane = (put(fqb.packed, np.int32), put(fqb.lengths, np.int32),
+                        put(fqb.barcode_ids.astype(np.int64), np.int64),
+                        put(fqb.nmask, np.int32) if fqb.nmask is not None
+                        else None)
+            timing.add("lane_bytes",
+                       sum(x.nbytes for x in lane if x is not None))
         self._lane_cache = (fqb, bsz, lane, spans, LaneSteps(lane))
         return lane, spans
 
@@ -419,16 +457,17 @@ class Engine:
         power of two, so a pass makes at most log2(flush_batches) + 1 step
         shapes; the pad batches are empty."""
         cfg = self.cfg
-        S = 1 << (len(grp) - 1).bit_length()
-        om = np.zeros((2, S), np.int64)
-        om[:, :len(grp)] = np.array([(a, b - a) for a, b in grp]).T
-        ss = StepSpec(S, cfg.batch_reads, self._read_len, cfg.spec, cfg.mode,
-                      cfg.modulus, cfg.syncmer_s, *self._batch_shape(),
-                      keying, key_bits, **kw)
-        self.stats["dispatches"] += 1
-        keys, wts, over = steps(ss, om, retained)
-        n = len(grp) * ss.slots
-        return keys[:n], wts[:n], over
+        with timing.span("step"):
+            S = 1 << (len(grp) - 1).bit_length()
+            om = np.zeros((2, S), np.int64)
+            om[:, :len(grp)] = np.array([(a, b - a) for a, b in grp]).T
+            ss = StepSpec(S, cfg.batch_reads, self._read_len, cfg.spec,
+                          cfg.mode, cfg.modulus, cfg.syncmer_s,
+                          *self._batch_shape(), keying, key_bits, **kw)
+            self.timer.add("dispatches")
+            keys, wts, over = steps(ss, om, retained)
+            n = len(grp) * ss.slots
+            return keys[:n], wts[:n], over
 
     def _batch_shape(self):
         """(C, slots) of this lane's batches: the kernel's compaction width
@@ -447,7 +486,7 @@ class Engine:
 
     # -- count pass --------------------------------------------------------------
 
-    @_counting_flushes
+    @_span("count")
     def count(self, fqb: Fqb, local_shard: bool = False) -> None:
         """Count pass: steps of up to ``flush_batches`` batches sketch,
         pre-reduce and buffer into the count table.  Barcodes mode keys on
@@ -627,7 +666,7 @@ class Engine:
 
     # -- incidence, clusters, split, report --------------------------------------
 
-    @_counting_flushes
+    @_span("incidence")
     def incidence(self, fqb: Fqb, local_shard: bool = False) -> None:
         """Second pass: the deduplicated k-mer x barcode incidence, in steps
         of up to ``flush_batches`` batches.  Lanes whose (barcode, hash)
@@ -675,6 +714,7 @@ class Engine:
         self.timer.stage(f"incidence: {self.inc.n_pairs} pairs, "
                          f"{self.inc.n_codes} codes x {self.inc.n_kmers} kmers")
 
+    @_span("cluster")
     def cluster(self, min_share: int = 0) -> None:
         """Per-barcode molecule clustering (``--codeClusters``) in the
         configured mode: uncapped friend (the sparse pipeline), capped
@@ -715,6 +755,7 @@ class Engine:
             n_cl = int(per_code.sum())
         self.timer.stage(f"cluster: {n_cl} molecules over {inc.n_codes} codes")
 
+    @_span("split")
     def split(self) -> None:
         """Remap (code, cluster) -> new molecule codes (``--clusterSplit``):
         new ids are the dense ranks of the distinct (code, label) pairs in
@@ -733,6 +774,7 @@ class Engine:
             return
         K = int(self.cluster_labels.max()) + 1
         comb = inc.code_of_pair() * K + self.cluster_labels
+        timing.add("sorted_keys", 2 * comb.shape[0])   # unique, then sort
         uniq, new_code, sizes = torch.unique(
             comb, sorted=True, return_inverse=True, return_counts=True)
         self._mol_cache = (uniq, sizes, K)
@@ -742,6 +784,7 @@ class Engine:
         self.split_origin = torch.stack([uniq // K, uniq % K], dim=1)
         self.timer.stage(f"split: {uniq.shape[0]} molecule codes")
 
+    @_span("report")
     def report(self, out=sys.stdout) -> None:
         """Cluster report (``--clusterReport``): one line per code with its
         k-mer count, cluster count and cluster sizes."""
@@ -900,7 +943,7 @@ class Engine:
         S = 1 << (len(grp) - 1).bit_length()
         om = np.zeros((2, S), np.int64)
         om[:, :len(grp)] = np.array([(a, b - a) for a, b in grp]).T
-        self.stats["dispatches"] += 1
+        self.timer.add("dispatches")
         if steps is not None:
             out = steps.sharded(cs, om, per, self._read_len, src)
         else:

@@ -41,6 +41,12 @@ copies them first, in stream order.  A capture or a replay that fails
 raises: a step never falls back to eager work on the card.  On the CPU the
 same step runs eagerly, and so does a sharded step of several processes,
 whose exchanges cross the host.
+
+A capture is the host-clock span ``step.capture`` and adds 1 to the counter
+``graph_captures`` of the current timer (``utils/timing.py``).  The counters
+its captured work adds (the dedup sorts' ``sorted_keys``) are tallied apart
+at capture, and each replay adds them, as ``minimizer.count_replay`` adds
+the recorded launches; the warm-up call records nothing.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ from .hashspec import HashSpec
 from .kernels import minimizer
 from .table import sorted_table as st
 from .table.incidence import pair_keys
+from .utils import timing
 
 __all__ = ["StepSpec", "LaneSteps", "step", "sharded_step", "REPLAYS"]
 
@@ -223,26 +230,35 @@ class _StepGraph:
     so the tensors the graph reads, alive."""
 
     def __init__(self, fn, S: int, dev, src):
+        timing.add("graph_captures")
+        with timing.span("step.capture"):
+            self._capture(fn, S, dev, src)
+
+    def _capture(self, fn, S: int, dev, src):
         minimizer.build()   # load the kernel library outside the capture
         self.fn, self.src = fn, src
         self.om = torch.zeros((2, S), dtype=torch.int64, device=dev)
         cur = torch.cuda.current_stream(dev)
         side, pool = _capture_resources(dev)
         side.wait_stream(cur)
+        tally = timing.StageTimer(None)   # the counters of one replay
         with torch.cuda.stream(side):
             # warm-up (all batches empty): lazy initialisation and the
             # kernel module's load happen here, not under capture
-            fn(self.om)
+            with timing.recording(None):
+                fn(self.om)
             torch.cuda.synchronize(dev)
             self.graph = torch.cuda.CUDAGraph()
             n0 = minimizer.CAPTURED
             self.graph.capture_begin(pool=pool)
             try:
-                self.out = fn(self.om)
+                with timing.recording(tally):
+                    self.out = fn(self.om)
             finally:
                 self.graph.capture_end()
         cur.wait_stream(side)
         self.launches = minimizer.CAPTURED - n0
+        self.counters = tally.counters
 
     def replay(self, om: np.ndarray):
         """Replay on the current stream with the (2, S) input ``om``.  The
@@ -253,4 +269,6 @@ class _StepGraph:
         self.graph.replay()
         REPLAYS += 1
         minimizer.count_replay(self.launches)
+        for name, n in self.counters.items():
+            timing.add(name, n)
         return self.out

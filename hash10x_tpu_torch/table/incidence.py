@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from .. import INT64_MAX
+from ..utils import timing
 from .sorted_table import lookup_ids
 
 __all__ = ["Incidence", "build_incidence", "retained_lookup", "pair_keys",
@@ -126,6 +127,7 @@ def _csr_from_pairs(pairs: torch.Tensor, n_kmers: int, n_codes: int):
     pk = pairs % n_kmers
     code_offsets = torch.searchsorted(
         pairs, torch.arange(n_codes + 1, device=dev) * n_kmers)
+    timing.add("sorted_keys", pairs.shape[0])
     keys2, inv2fwd = torch.sort(pk * n_codes + pc, stable=True)
     kmer_offsets = torch.searchsorted(
         keys2, torch.arange(n_kmers + 1, device=dev) * n_codes)

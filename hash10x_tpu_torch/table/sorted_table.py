@@ -16,8 +16,13 @@
   ``n_filled``.
 * ``merge_counts`` merges outside (key, count) pairs the same way;
   ``prune`` and ``prune_rescue`` drop the error band (``Engine.error_fix``).
-* ``FLUSHES`` counts the sort-merges (``flush_grow`` calls with a non-empty
-  buffer, ``merge_counts`` included); ``Engine.stats`` reads it.
+* A sort-merge (``flush_grow`` with a non-empty buffer, ``merge_counts``
+  included) is the span ``table.flush`` and adds 1 to the counter
+  ``flushes`` of the current timer (``utils/timing.py``: the engine's,
+  while one of its stages runs; none outside).  Every device sort here adds
+  its elements to the counter ``sorted_keys``: a step's dedup sorts run
+  inside its CUDA graph, so the step tallies them at capture and adds them
+  per replay (``engine_steps``).
 
 Per-batch pre-reductions have a fixed slot count; distinct keys beyond it
 are counted exactly in an ``overflow`` tensor that callers check and raise
@@ -32,15 +37,14 @@ from typing import Tuple
 import torch
 
 from .. import INT64_MAX
+from ..utils import timing
 
 __all__ = ["SortedTable", "make_sorted_table", "append", "append_pairs",
            "flush_grow", "grow_buf", "merge_counts", "segment_sum_sorted",
            "dedup_weighted", "dedup_pairs_weighted",
            "dedup_weighted_segmented", "dedup_pairs_weighted_segmented",
            "count_histogram",
-           "compact", "prune", "prune_rescue", "lookup_ids", "FLUSHES"]
-
-FLUSHES = 0
+           "compact", "prune", "prune_rescue", "lookup_ids"]
 
 
 @dataclasses.dataclass
@@ -87,11 +91,17 @@ def flush_grow(t: SortedTable, load: float = 0.6) -> SortedTable:
     ``load`` of it.  When the table grows, its append buffer grows to an
     eighth of its capacity, so a table of n keys takes O(log n) flushes,
     each O(n) work plus the sort of one buffer."""
-    global FLUSHES
     if t.buf_n == 0:
         return t
-    FLUSHES += 1
+    timing.add("flushes")
+    with timing.span("table.flush", device=True):
+        return _merge_buffer(t, load)
+
+
+def _merge_buffer(t: SortedTable, load: float) -> SortedTable:
+    """:func:`flush_grow` of a non-empty buffer."""
     dev = t.hashes.device
+    timing.add("sorted_keys", t.buf_n)
     bk, order = torch.sort(t.buf[:t.buf_n])
     bk, bw = segment_sum_sorted(bk, t.bufw[:t.buf_n][order])
     del order
@@ -251,6 +261,7 @@ def _fold_rows(flat: torch.Tensor, S: int, key_bits: int):
 def _by_row(order: torch.Tensor, N: int):
     """The permutation ``order`` of stacked rows of N entries stably
     re-sorted by row, and the row of each entry it lists."""
+    timing.add("sorted_keys", order.shape[0])
     order = order[torch.argsort(order // N, stable=True)]
     return order, order // N
 
@@ -276,6 +287,7 @@ def dedup_weighted_segmented(keyed: torch.Tensor, slots: int,
     flat = keyed.reshape(-1)
     folded = _fold_rows(flat, S, key_bits) if S > 1 else flat
     row = None
+    timing.add("sorted_keys", flat.shape[0])
     if folded is None:
         order, row = _by_row(torch.argsort(flat, stable=True), N)
         s = flat[order]
@@ -309,6 +321,7 @@ def dedup_pairs_weighted_segmented(flat_h: torch.Tensor, flat_bc: torch.Tensor,
     h, bc = flat_h.reshape(-1), flat_bc.reshape(-1)
     folded = _fold_rows(h, S, key_bits) if S > 1 else h
     # lexicographic (row, hash, barcode) order from stable single-key sorts
+    timing.add("sorted_keys", 2 * h.shape[0])
     order = torch.argsort(bc, stable=True)
     row = None
     if folded is None:

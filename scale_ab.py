@@ -47,7 +47,6 @@ import torch
 from hash10x_tpu_torch.engine import Engine, EngineConfig
 from hash10x_tpu_torch.hashspec import HashSpec
 from hash10x_tpu_torch.io.fqb import load_fqb
-from hash10x_tpu_torch.table import sorted_table as st
 from hash10x_tpu_torch.cluster import sparse as SP
 from hash10x_tpu_torch.cluster import sparse_dist as SPD
 
@@ -76,14 +75,14 @@ stages = {}
 for name, fn in plan:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    f0 = st.FLUSHES
+    f0 = eng.stats["flushes"]
     t0 = time.monotonic()
     fn()
     torch.cuda.synchronize()
     stages[name] = {"wall_s": time.monotonic() - t0,
                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                     "reserved_gb": torch.cuda.memory_reserved() / 1e9,
-                    "flushes": st.FLUSHES - f0}
+                    "flushes": eng.stats["flushes"] - f0}
 cl = getattr(SPD if shards > 1 else SP, "STATS", {})
 print(json.dumps({"stages": stages, "stats": eng.stats,
                   "pairs": eng.inc.n_pairs, "report_bytes": sink.n,

@@ -49,8 +49,12 @@ def test_metrics_jsonl_matches_jax_cli(tmp_path):
     port = [r for r in recs["port"] if not r["stage"].startswith("report:")]
     assert len(port) == len(recs["port"]) - 1
     assert [r["stage"] for r in port] == [r["stage"] for r in recs["jax"]]
-    assert [sorted(r) for r in recs["port"]] == \
-        [sorted(recs["jax"][0])] * len(recs["port"])
+    # the port's records add the stage's spans and counters
+    assert [sorted(set(r) - {"spans", "counters"}) for r in recs["port"]] \
+        == [sorted(recs["jax"][0])] * len(recs["port"])
+    assert all(isinstance(r["spans"], dict) and isinstance(r["counters"],
+                                                            dict)
+               for r in recs["port"])
     assert "hbm_in_use_mb" not in recs["port"][0]
     t = [r["t_total_s"] for r in recs["port"]]
     assert t == sorted(t) and all(r["wall_s"] >= 0 for r in recs["port"])
@@ -71,6 +75,23 @@ def test_stage_timer_sinks(tmp_path):
     assert log.getvalue().startswith("[one] wall ") and "[two]" in \
         log.getvalue() and "HBM" not in log.getvalue()
     assert timer.total() >= 0
+    # each record holds the spans opened inside another and the counters
+    # added since the last record (a stage's own span closes after it)
+    path = tmp_path / "spans.jsonl"
+    timer = StageTimer(io.StringIO(), str(path), device="cpu")
+    with timer.span("stage"):
+        for _ in range(2):
+            with timer.span("part"):
+                timer.add("things", 3)
+        timer.stage("one")
+    timer.stage("two")
+    one, two = _records(path)
+    assert set(one["spans"]) == {"part"}
+    assert set(one["spans"]["part"]) == {"host_s", "n"}   # no device_s
+    assert one["spans"]["part"]["n"] == 2 and \
+        one["spans"]["part"]["host_s"] >= 0
+    assert one["counters"] == {"things": 6}
+    assert two["spans"] == {} and two["counters"] == {}
 
 
 def test_profile_writes_a_trace(tmp_path):

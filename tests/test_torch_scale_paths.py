@@ -54,6 +54,7 @@ from hash10x_tpu_torch.table import sorted_table as st
 from hash10x_tpu_torch.table.incidence import (build_incidence,
                                                combined_key_bits)
 from hash10x_tpu_torch.utils import text as T
+from hash10x_tpu_torch.utils import timing
 
 torch.set_num_threads(2)
 
@@ -176,13 +177,15 @@ def _pileup():
 def test_cluster_sparse_in_chunks_and_blocks_matches_jax(chunk, edge_block):
     ks, cs, want = _pileup()
     inc = build_incidence(ks, cs, 16_000, 2_000, "cpu")
-    lab = SP.cluster_codes_sparse(inc, 4, chunk=chunk, edge_block=edge_block)
+    with timing.recording(timing.StageTimer(None)) as timer:
+        lab = SP.cluster_codes_sparse(inc, 4, chunk=chunk,
+                                      edge_block=edge_block)
     assert lab.tolist() == want
     assert max(want) > 0
     stats = SP.STATS
     assert stats["friend_keys"] > 0 and stats["rounds"] >= 2
     if chunk < SP._CHUNK:
-        assert len(stats["reduce_s"]) >= 4
+        assert timer.span_totals()["cluster.cooccur.reduce"]["n"] >= 4
     if edge_block < SP._EDGE_BLOCK:
         assert stats["edge_blocks"] >= 8
 
@@ -236,17 +239,19 @@ def test_flush_merges_and_grows_the_buffer_with_the_table():
     rng = np.random.default_rng(4)
     t = st.make_sorted_table(1 << 8, 1 << 8, "cpu")
     ref = {}
-    f0 = st.FLUSHES
+    timer = timing.StageTimer(None)
     for step in range(400):
         k = rng.integers(0, 60_000, size=200).astype(np.int64)
         k[:50] = rng.integers(0, 300, size=50)   # hot keys
         w = rng.integers(1, 5, size=200).astype(np.int32)
         pad = rng.random(200) < 0.2
         k[pad], w[pad] = INT64_MAX, 0
-        t = st.append_pairs(t, torch.from_numpy(k), torch.from_numpy(w))
+        with timing.recording(timer):
+            t = st.append_pairs(t, torch.from_numpy(k), torch.from_numpy(w))
         for a, b in zip(k[~pad].tolist(), w[~pad].tolist()):
             ref[a] = ref.get(a, 0) + b
-    t = st.flush_grow(t)
+    with timing.recording(timer):
+        t = st.flush_grow(t)
     h, c = st.compact(t)
     keys = sorted(ref)
     assert h.tolist() == keys
@@ -256,7 +261,7 @@ def test_flush_merges_and_grows_the_buffer_with_the_table():
         t.capacity // 8
     # 80,000 appended entries through a buffer of at most cap / 8: a fixed
     # 256-entry buffer would flush 313 times
-    assert st.FLUSHES - f0 <= 40
+    assert timer.counters["flushes"] <= 40
 
 
 # -- the text writers --------------------------------------------------------
