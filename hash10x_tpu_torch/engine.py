@@ -46,12 +46,18 @@ the device: the counters ``dispatches`` (multi-batch steps sent to the
 device in count and incidence, sharded or not), ``flushes`` (sort-merges of
 an append buffer into a table during the engine's stages),
 ``graph_captures`` (step shapes captured into CUDA graphs), ``sorted_keys``
-(elements put through the main path's device sorts) and ``lane_bytes``
-(lane bytes copied to the device); and for each span name N, ``N.host_s``
-and ``N.n``.  The spans, on the host clock: ``count``, ``incidence``,
-``cluster``, ``split`` and ``report`` around those stages; ``lane`` (its
-children ``lane.order``, ``lane.batches``, ``lane.copy``: the host's barcode
-sort, batching and copy to the device); ``step`` (one multi-batch step's
+(elements put through the main path's device sorts, the lane's barcode
+sort included), ``lane_bytes`` (the bytes of the barcode-sorted lane on the
+device) and ``lane_staged_bytes`` (lane bytes sent through the pinned
+staging buffers: the file-order lane on CUDA, 0 on the CPU); and for each
+span name N, ``N.host_s`` and ``N.n``.  The spans, on the host clock:
+``count``, ``incidence``, ``cluster``, ``split`` and ``report`` around those
+stages; ``lane`` (its children ``lane.order``, the barcode ids sent in
+file order, their stable sort on the device and each read's place in
+barcode order; ``lane.copy``, the reads' words, lengths and N masks sent
+in file order and put in those places on the device; ``lane.batches``,
+the reads per barcode counted on the device and the host's batch spans
+from them); ``step`` (one multi-batch step's
 host dispatch) and its ``step.capture`` (a CUDA graph's warm-up and
 capture); ``table.flush`` (``table/sorted_table.py``); and
 ``cluster.cooccur``, ``cluster.cooccur.reduce``, ``cluster.friends``,
@@ -95,7 +101,63 @@ __all__ = ["Engine", "EngineConfig", "coverage_peaks"]
 
 # the counters ``Engine.stats`` always holds (0 until counted)
 COUNTERS = ("dispatches", "flushes", "graph_captures", "sorted_keys",
-            "lane_bytes")
+            "lane_bytes", "lane_staged_bytes")
+
+# the host-to-device staging of a lane (``_staged``): bytes a staging
+# buffer holds, and the buffers in the ring
+STAGE_BYTES = 1 << 24
+STAGE_RING = 3
+
+
+def _row_chunks(n: int, row_bytes: int):
+    """Chunks (lo, hi, slot) of an array of ``n`` rows of ``row_bytes``:
+    whole rows, at most ``STAGE_BYTES`` a chunk, on the staging ring's
+    slots in turn."""
+    rows = STAGE_BYTES // row_bytes
+    for k, lo in enumerate(range(0, n, rows)):
+        yield lo, min(lo + rows, n), k % STAGE_RING
+
+
+def _to_device(a: np.ndarray, device: torch.device, dest=None):
+    """Host array ``a`` (uint32 words as int32) on ``device``, its row i at
+    row ``dest[i]`` (in file order without ``dest``).  On CUDA through
+    pinned staging (``_staged``); on the CPU ``torch.from_numpy``, which
+    shares ``a``'s memory in file order."""
+    a = np.ascontiguousarray(a)
+    src = torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+    if device.type == "cuda":
+        return _staged(src, device, dest)
+    return src if dest is None else \
+        torch.empty_like(src).index_copy_(0, dest, src)
+
+
+def _staged(src: torch.Tensor, device: torch.device, dest=None):
+    """``_to_device`` on a CUDA ``device``: each chunk of ``_row_chunks`` is
+    copied on the host into its slot, one of ``STAGE_RING`` pinned buffers
+    of ``STAGE_BYTES`` from torch's caching host allocator (so later lanes
+    of the process reuse them), sent without blocking and, with ``dest``,
+    put in place there.  A slot is filled again once the event recorded on
+    ``device``'s stream after its last use has passed, so the host's copies
+    overlap the transfers.  The bytes sent count in
+    ``lane_staged_bytes``."""
+    stream = torch.cuda.current_stream(device)
+    ring = [(torch.empty(STAGE_BYTES, dtype=torch.uint8, pin_memory=True),
+             torch.cuda.Event()) for _ in range(STAGE_RING)]
+    out = torch.empty(src.shape, dtype=src.dtype, device=device)
+    row = src.stride(0) * src.element_size()
+    for lo, hi, slot in _row_chunks(src.shape[0], row):
+        buf, sent = ring[slot]
+        sent.synchronize()
+        piece = buf[:(hi - lo) * row].view(src.dtype).view(src[lo:hi].shape)
+        piece.copy_(src[lo:hi])
+        if dest is None:
+            out[lo:hi].copy_(piece, non_blocking=True)
+        else:
+            out.index_copy_(0, dest[lo:hi],
+                            piece.to(device, non_blocking=True))
+        sent.record(stream)
+    timing.add("lane_staged_bytes", src.nbytes)
+    return out
 
 
 def coverage_peaks(hist: np.ndarray, min_frac: float = 0.05):
@@ -320,68 +382,75 @@ class Engine:
 
     # -- batching --------------------------------------------------------------
 
-    def _spans(self, fqb: Fqb, bsz: int = 0):
-        """Barcode-sorted read order and batch spans (a, b, group) of at most
-        ``bsz`` (default ``batch_reads``) reads, boundaries aligned so one
-        barcode never straddles a batch; a barcode with more reads than a
-        batch streams alone as consecutive spans sharing a group id (None
-        otherwise)."""
-        bsz = bsz or self.cfg.batch_reads
-        with timing.span("lane.order"):
-            order = np.argsort(fqb.barcode_ids, kind="stable")
-            bc_all = fqb.barcode_ids[order]
-        with timing.span("lane.batches"):
-            return order, self._batch_spans(bc_all, bsz)
-
     @staticmethod
-    def _batch_spans(bc_all: np.ndarray, bsz: int):
-        """The batch spans of ``_spans`` over the sorted barcode ids."""
-        n = len(bc_all)
+    def _batch_spans(counts: np.ndarray, bsz: int):
+        """Batch spans (a, b, group) over the barcode-sorted lane whose
+        barcode id i has ``counts[i + 1]`` reads (``counts[0]``: the reads
+        without a barcode, id -1, which sort first and split anywhere): at
+        most ``bsz`` reads a batch, boundaries aligned so one barcode never
+        straddles a batch; a barcode with more reads than a batch streams
+        alone as consecutive spans sharing a group id (None otherwise)."""
+        ends = np.cumsum(counts)         # id r - 1 ends at ends[r]
+        n, m = int(ends[-1]), int(counts[0])
         spans = []
         i = 0
         gid = 0
         while i < n:
-            j = min(i + bsz, n)
-            if j < n:
-                # retreat to the start of the straddling barcode
-                jb = j
-                while jb > i and bc_all[jb - 1] == bc_all[j] and bc_all[j] != -1:
-                    jb -= 1
-                if jb > i:
-                    j = jb
-                elif bc_all[j] != -1 and bc_all[i] == bc_all[j]:
+            j = i + bsz
+            if j >= n:
+                spans.append((i, n, None))
+                break
+            if j >= m:
+                # retreat to the start of the barcode that j falls in
+                r = int(np.searchsorted(ends, j, "right"))
+                e = int(ends[r])
+                s = e - int(counts[r])
+                if s <= i:
                     # oversized barcode: stream it alone as a tagged group
-                    e = i + np.searchsorted(bc_all[i:], bc_all[i], "right")
                     gid += 1
                     spans.extend((a, min(a + bsz, e), gid)
                                  for a in range(i, e, bsz))
                     i = e
                     continue
+                j = s
             spans.append((i, j, None))
             i = j
         return spans
 
     def _lane(self, fqb: Fqb, bsz: int = 0):
         """The barcode-sorted lane on the device (packed words as int32,
-        lengths, barcode ids, N mask or None) and its batch spans of ``bsz``
-        reads.  Cached for the lane last seen, with its multi-batch steps
+        lengths, barcode ids as int64, N mask or None) and its batch spans
+        of ``bsz`` reads (``_batch_spans``).  The barcode ids go to the
+        device in file order (``_to_device``) and a stable sort there gives
+        each read its place in barcode order; the other arrays go in file
+        order and land in those places, so the set-up holds little beyond
+        the lane.  The reads per barcode, counted there, come back for the
+        spans.  Cached for the lane last seen, with its multi-batch steps
         (``_steps``), so the incidence pass re-reads nothing."""
         bsz = bsz or self.cfg.batch_reads
         c = self._lane_cache
         if c is not None and c[0] is fqb and c[1] == bsz:
             return c[2], c[3]
+        dev = self.device
         with timing.span("lane"):
-            order, spans = self._spans(fqb, bsz)
-            dev = self.device
-
-            def put(a, dtype):
-                return torch.from_numpy(np.ascontiguousarray(a[order])
-                                        .view(dtype)).to(dev)
+            with timing.span("lane.order"):
+                bcs, order = torch.sort(_to_device(
+                    np.asarray(fqb.barcode_ids, np.int32), dev), stable=True)
+                timing.add("sorted_keys", order.shape[0])
+                bcs = bcs.long()
+                dest = torch.empty_like(order).scatter_(
+                    0, order, torch.arange(order.shape[0], device=dev))
+                del order
             with timing.span("lane.copy"):
-                lane = (put(fqb.packed, np.int32), put(fqb.lengths, np.int32),
-                        put(fqb.barcode_ids.astype(np.int64), np.int64),
-                        put(fqb.nmask, np.int32) if fqb.nmask is not None
-                        else None)
+                lane = (_to_device(fqb.packed, dev, dest),
+                        _to_device(fqb.lengths, dev, dest), bcs,
+                        None if fqb.nmask is None
+                        else _to_device(fqb.nmask, dev, dest))
+                del dest
+            with timing.span("lane.batches"):
+                counts = torch.bincount(bcs + 1, minlength=1)
+                spans = self._batch_spans(counts.cpu().numpy(), bsz)
+                del counts
             timing.add("lane_bytes",
                        sum(x.nbytes for x in lane if x is not None))
         self._lane_cache = (fqb, bsz, lane, spans, LaneSteps(lane))

@@ -242,7 +242,7 @@ def test_stats_count_batches_and_flushes(lane, monkeypatch, n_shards, batch,
     cfg.flush_batches = flush_batches
     fqb = FB.load_fqb(lane)
     eng = Engine(cfg, "cpu", log=None)
-    spans = eng._spans(fqb)[1]
+    spans = eng._lane(fqb)[1]
     assert all(gid is None for *_, gid in spans)   # no oversized barcode
     n_batches = len(spans)
     # one device step per flush_batches batches, sharded or not

@@ -122,7 +122,7 @@ def _jax(n, flush_batches, count_mode):
 
 
 def _n_steps(eng, fqb, split_groups):
-    return len(list(eng._step_groups(eng._spans(fqb)[1], split_groups)))
+    return len(list(eng._step_groups(eng._lane(fqb)[1], split_groups)))
 
 
 @pytest.mark.parametrize("flush_batches", [1, 3, 16])
@@ -139,7 +139,7 @@ def test_sharded_passes_match_jax(count_mode, n, flush_batches):
                                             count_mode)["counts"]
     n_count = _n_steps(eng, fqb, count_mode == "barcodes")
     assert eng.stats["dispatches"] == n_count
-    assert (n_count < len(eng._spans(fqb)[1])) == (flush_batches > 1)
+    assert (n_count < len(eng._lane(fqb)[1])) == (flush_batches > 1)
     eng.filter()
     eng.incidence(fqb)
     assert eng.stats["dispatches"] == n_count + _n_steps(eng, fqb, False)

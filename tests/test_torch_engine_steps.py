@@ -183,7 +183,7 @@ def _engine(k, count_mode, **cfg):
 
 
 def _n_steps(eng, fqb, split_groups):
-    spans = eng._spans(fqb)[1]
+    spans = eng._lane(fqb)[1]
     return len(list(eng._step_groups(spans, split_groups))), spans
 
 
@@ -240,7 +240,7 @@ def test_step_shapes_are_powers_of_two(monkeypatch):
     monkeypatch.setattr(ES.LaneSteps, "__call__", spy)
     eng = _engine(21, "barcodes", flush_batches=6)
     eng.count(fqb)
-    n_spans = len(eng._spans(fqb)[1])
+    n_spans = len(eng._lane(fqb)[1])
     assert all(S in (1, 2, 4, 8) and n <= min(S, 6) for S, n in seen)
     assert sum(n for _, n in seen) == n_spans
     assert sum(S == 1 for S, _ in seen) >= 3   # the 600-read barcode

@@ -144,7 +144,7 @@ def test_k25_lane_incidence_takes_the_extra_sort_and_matches_jax(
     monkeypatch.setattr(st, "_by_row", real)
     # 16 batches: one step of S = 16 a pass, and the incidence's took the
     # extra sort (the count pass's 50-bit pair keys fold)
-    assert len(eng._spans(fqb)[1]) == 16
+    assert len(eng._lane(fqb)[1]) == 16
     assert eng.stats["dispatches"] == 2 and len(sorts) == 1
     inc, labels, texts = _jax_k25()
     for f in FIELDS:

@@ -5,7 +5,8 @@ key is exported, each span under its parent, reset zeroes them, the step
 and flush counts equal the calls made, the sort count repeats, nothing
 records outside an engine, and under ``torch.profiler`` the spans lie
 inside the caller's ``stage:`` range; and, on a CUDA card, the stream
-seconds, the graph captures and the counters a replay adds."""
+seconds, the graph captures, the counters a replay adds and the lane's
+bytes through the pinned staging ring."""
 
 import functools
 import json
@@ -14,6 +15,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from hash10x_tpu_torch import engine as E
 from hash10x_tpu_torch.engine import COUNTERS, Engine, EngineConfig
 from hash10x_tpu_torch.hashspec import HashSpec
 from hash10x_tpu_torch.io.fqb import from_read_batch
@@ -69,6 +71,7 @@ def test_every_key_is_exported():
     assert stats["lane.n"] == 1          # the incidence reuses the lane
     assert stats["cluster.round.n"] >= 2
     assert stats["lane_bytes"] > 0 and stats["graph_captures"] == 0
+    assert stats["lane_staged_bytes"] == 0   # no staging on the CPU
     assert all(v >= 0 for v in stats.values())
 
 
@@ -98,6 +101,8 @@ def test_reset_zeroes_the_keys():
     again = _pass(eng)
     # the reset kept the lane on the device: no lane span, the same steps
     assert "lane.n" not in again and again["lane_bytes"] == 0
+    assert again["lane_staged_bytes"] == 0
+    assert again["sorted_keys"] == first["sorted_keys"] - len(_fqb())
     assert again["step.n"] == first["step.n"] == again["dispatches"]
 
 
@@ -195,14 +200,67 @@ def test_on_the_card_stream_spans_resolve_and_replays_count():
     assert got["graph_captures"] == got["step.capture.n"] >= 1
     for k in ("dispatches", "flushes", "sorted_keys", "lane_bytes"):
         assert got[k] == first[k] == cpu[k], k
-    # a second pass: the graphs are cached, the sorts repeat, and it draws
-    # its events from those the first pass gave back
+    # a second pass: the graphs are cached, the step and table sorts
+    # repeat, and it draws its events from those the first pass gave back
     pool = len(timing._FREE[eng.timer.device])
     eng.reset()
     again = _pass(eng)
     torch.cuda.synchronize(dev)
     again = eng.stats
     assert again["graph_captures"] == 0 and "step.capture.n" not in again
-    assert again["sorted_keys"] == got["sorted_keys"]
+    # the kept lane is not sorted again: its reads leave the sort count
+    assert again["sorted_keys"] == got["sorted_keys"] - len(_fqb())
     assert eng.timer._pending == []
     assert len(timing._FREE[eng.timer.device]) - pool < pool - pool0
+
+
+def _staged_lanes(monkeypatch, current: int):
+    """The lane of a 150-base simulated lane (no Ns) on the CPU and on
+    ``cuda:0`` while ``cuda:<current>`` is the current device, the ring
+    cut to 4 KiB buffers (17 chunks of words: each slot is reused) and
+    ``cuda:0``'s stream held up first, so every transfer queues behind it:
+    a buffer filled again before its transfer has run changes the lane."""
+    monkeypatch.setattr(E, "STAGE_BYTES", 4096)
+    r = simulate(SimConfig(genome_len=40_000, n_barcodes=24,
+                           molecules_per_barcode=2, molecule_len=5_000,
+                           reads_per_molecule=30, read_len=150, seed=4))
+    fqb = from_read_batch(r.reads, r.barcode_keys)
+    assert fqb.nmask is None and fqb.packed.shape[1] == 10
+    out = []
+    for dev in ("cpu", torch.device("cuda", 0)):
+        eng = _engine(dev)
+        if dev != "cpu":
+            with torch.cuda.device(0):
+                torch.cuda._sleep(1 << 30)
+        with torch.cuda.device(current), eng.timer.span("count"):
+            lane, spans = eng._lane(fqb)
+        out.append((lane, spans, eng.stats))
+    (cpu, spans, cstats), (gpu, gspans, gstats) = out
+    assert gstats["lane_staged_bytes"] == 48 * len(fqb)
+    assert cstats["lane_staged_bytes"] == 0
+    assert cstats["lane_bytes"] == gstats["lane_bytes"]
+    assert spans == gspans
+    for a, b in zip(cpu, gpu):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert b.device == torch.device("cuda", 0)
+            assert a.dtype == b.dtype and torch.equal(a, b.cpu())
+
+
+@pytest.mark.chip
+def test_on_the_card_the_lane_goes_through_staging(monkeypatch):
+    """The file-order lane through the pinned ring: 40 B of words, 4 of
+    length and 4 of barcode id a read, and the sorted lane equal to the
+    CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _staged_lanes(monkeypatch, 0)
+
+
+@pytest.mark.chip
+def test_on_the_card_staging_follows_the_engine_device(monkeypatch):
+    """As above with another card current: the ring's events are recorded
+    on the stream that does the engine device's copies."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    _staged_lanes(monkeypatch, 1)
