@@ -15,19 +15,31 @@ The phases of ``cluster/sparse.py`` spread over a shard group:
    the sweep run again with doubled lanes.
 2. **Friend set.**  Each shard keeps its pairs with share >= the threshold;
    only those are gathered, mirrored to both orders and held by every shard.
-3. **Edges.**  A second sweep over each shard's own segments links each
-   forward position to the friend ranks of the friends holding the same
-   k-mer; edges stay on their shard.
+3. **Edges.**  A second sweep over each shard's own segments, distance by
+   distance (no exchange, so no window), links each forward position to
+   the friend ranks of the friends holding the same k-mer; edges stay on
+   their shard, as (position, friend rank) blocks of about
+   ``_EDGE_BLOCK`` edges (each edge arises once, so nothing dedups or
+   sorts them, and no table holds them).
 4. **Propagation.**  Labels (global forward positions) are held whole by
    every process; each round every shard takes the minimum over its own
-   edges and ``all_reduce(min)`` merges the shards (the JAX package's
-   ``pmin``), then pointer jumping; ``all_reduce(max)`` of a changed flag
-   ends the loop, one host read per round.  ``label_block_pairs`` runs the
-   fixpoint over barcode-aligned blocks of positions instead, for lanes
-   whose whole label vector should not be held.
+   edges, block by block, and ``all_reduce(min)`` merges the shards (the
+   JAX package's ``pmin``), then pointer jumping; ``all_reduce(max)`` of a
+   changed flag ends the loop, one host read per round.
+   ``label_block_pairs`` runs the fixpoint over barcode-aligned blocks of
+   positions instead, for lanes whose whole label vector should not be
+   held.
 
 Labels equal the single-device ``cluster/sparse.py`` (and the JAX package's
 ``cluster_codes_sparse_dist``) exactly.
+
+Spans of the current timer (``utils/timing.py``; the engine's while it
+clusters), the one-card path's names for the same phases:
+``cluster.cooccur`` (1, with the stream clock), ``cluster.friends`` (2),
+``cluster.edges`` (3, stream clock) and a ``cluster.round`` per
+propagation round (4, stream clock).  The sweep's routing is the
+``shard.route`` span and counters of ``dist/sharded_sorted.py``; a sweep
+run again with doubled lanes adds 1 to ``shard.sweep_retries``.
 """
 
 from __future__ import annotations
@@ -43,7 +55,8 @@ from ..dist.group import ShardGroup
 from ..dist.sharded_inc import ShardedIncidence, canon_labels_sharded
 from ..table import sorted_table as st
 from ..table.incidence import Incidence
-from .sparse import _BIG, _forward_positions, canonical_ranks
+from ..utils import timing
+from .sparse import _BIG, _EDGE_BLOCK, _forward_positions, canonical_ranks
 
 __all__ = ["cluster_codes_sparse_dist", "cooccurrence_counts_dist",
            "friend_keys_dist", "STATS"]
@@ -52,8 +65,8 @@ _CHUNK = 1 << 20
 
 # host figures of the last clustering, read by callers that report them:
 # friend keys in both orders ("friend_keys"), this process's edges
-# ("edges"), label blocks ("label_blocks") and propagation rounds summed
-# over them ("rounds")
+# ("edges") and their blocks ("edge_blocks"), label blocks
+# ("label_blocks") and propagation rounds summed over them ("rounds")
 STATS: dict = {}
 
 
@@ -97,11 +110,17 @@ class _ShardedShiftJoin:
             self.pos.append(torch.cat([fwd[pos_old], pad])
                             if fwd is not None else None)
 
+    def b(self, s: int, d: int) -> int:
+        """Shard s's entries in segments still holding pairs at distance d
+        (a prefix: segments of length >= d + 1)."""
+        sl = self.sls[s]
+        return int(self.cums[s][int(np.searchsorted(-sl, -(d + 1),
+                                                    side="right"))])
+
     def _wins(self, s: int):
         out = []
-        sl, cum = self.sls[s], self.cums[s]
         for d in range(1, self.Ds[s]):
-            b = int(cum[int(np.searchsorted(-sl, -(d + 1), side="right"))])
+            b = self.b(s, d)
             a = 0
             while a < b - d:
                 out.append((a, d))
@@ -132,13 +151,15 @@ class _ShiftJoinDev:
         self.codes, self.seg, pos, self.hist, self.W, self.Ds = res
         self.pos = pos if with_positions else None
 
+    def b(self, s: int, d: int) -> int:
+        """Shard s's positions in segments of length >= d + 1 (a suffix sum
+        of its histogram)."""
+        return int(self.hist[s][d + 1:].sum())
+
     def _wins(self, s: int):
         out = []
-        hs = self.hist[s]
-        # positions in segments of length >= d + 1 (a suffix sum)
-        suf = np.concatenate([np.cumsum(hs[::-1])[::-1], [0]])
         for d in range(1, self.Ds[s]):
-            b = int(suf[d + 1]) if d + 1 < len(suf) else 0
+            b = self.b(s, d)
             a = 0
             while a < b - d:
                 out.append((a, d))
@@ -178,24 +199,6 @@ def _window(codes, seg, a: int, d: int, W: int):
 def _win_keys(codes, seg, a: int, d: int, n_codes: int, W: int):
     c1, c2, ok = _window(codes, seg, a, d, W)
     return torch.where(ok, c1 * n_codes + c2, INT64_MAX)
-
-
-def _win_edges(codes, seg, pos, a: int, d: int, fkeys, n_codes: int,
-               W: int):
-    """Edge keys ``p * n_f + f`` of one window: for a friend pair (c1, c2)
-    sharing the k-mer, (fwd position of (c1, h), rank of (c1, c2)) and
-    (fwd position of (c2, h), rank of (c2, c1))."""
-    c1, c2, ok = _window(codes, seg, a, d, W)
-    n_f = fkeys.shape[0]
-    i1, f1 = st.lookup_ids(fkeys, torch.where(ok, c1 * n_codes + c2,
-                                              INT64_MAX))
-    i2, _ = st.lookup_ids(fkeys, torch.where(ok, c2 * n_codes + c1,
-                                             INT64_MAX))
-    isf = ok & f1
-    p = pos[a:a + W]
-    e1 = torch.where(isf, p * n_f + i1, INT64_MAX)
-    e2 = torch.where(isf, torch.roll(p, -d) * n_f + i2, INT64_MAX)
-    return torch.cat([e1, e2])
 
 
 def _shift_join_of(inc, group: ShardGroup, chunk: int,
@@ -239,8 +242,11 @@ def _cooccur_table(inc, group: ShardGroup, chunk: int):
                 for i, s in enumerate(range(group.lo, group.hi))])
             recv, drop = SS.route_low(group, keys, cap_lane)
             drops += drop
+            # only the keys go on into the tables: the lanes are mostly pads
+            real = recv != INT64_MAX
+            got = torch.split(recv[real], real.sum(dim=1).tolist())
             for i in range(nl):
-                tables[i] = st.append(tables[i], recv[i])
+                tables[i] = st.append(tables[i], got[i])
         if SS.host_sum(group, drops):
             raise SS.LaneOverflowError(
                 "pair routing dropped keys (lane overflow)",
@@ -258,6 +264,7 @@ def _cooccur_table(inc, group: ShardGroup, chunk: int):
             if cap_lane >= W or attempt == 3:
                 raise
             cap_lane = min(W, 2 * cap_lane)
+            timing.add("shard.sweep_retries")
 
 
 def _gather_rows(group: ShardGroup, rows: List[torch.Tensor], pad: int):
@@ -271,17 +278,21 @@ def friend_keys_dist(inc, group: ShardGroup, min_friend_share: int,
                      chunk: int = _CHUNK) -> torch.Tensor:
     """Sorted friend keys (both orders) on every process: thresholded
     shard-side, only the survivors are gathered and mirrored."""
-    tables = _cooccur_table(inc, group, chunk)
+    with timing.span("cluster.cooccur", device=True):
+        tables = _cooccur_table(inc, group, chunk)
     dev = group.device
     if tables is None:
         return torch.zeros(0, dtype=torch.int64, device=dev)
-    kept = []
-    for t in tables:
-        h, c = st.compact(t)
-        kept.append(h[c >= min_friend_share])
-    k1 = _gather_rows(group, kept, INT64_MAX)
-    nc = inc.n_codes
-    return torch.sort(torch.cat([k1, (k1 % nc) * nc + k1 // nc])).values
+    with timing.span("cluster.friends"):
+        kept = []
+        for t in tables:
+            h, c = st.compact(t)
+            kept.append(h[c >= min_friend_share])
+        del tables
+        k1 = _gather_rows(group, kept, INT64_MAX)
+        nc = inc.n_codes
+        timing.add("sorted_keys", 2 * k1.shape[0])
+        return torch.sort(torch.cat([k1, (k1 % nc) * nc + k1 // nc])).values
 
 
 def cooccurrence_counts_dist(inc, group: ShardGroup, chunk: int = _CHUNK):
@@ -300,47 +311,83 @@ def cooccurrence_counts_dist(inc, group: ShardGroup, chunk: int = _CHUNK):
     return h, c[c >= 0][order]
 
 
-def _edge_tables(sj, group: ShardGroup, fkeys, n_codes: int, n_pairs: int):
-    """The edge sweep: per local shard the ascending (p-major) edge keys
-    ``p * n_f + f`` of its own segments."""
-    n = group.n_shards
-    W = sj.W
-    tables = _sweep_tables(group, min(_pow2(max(8 * n_pairs // n, 1 << 12)),
-                                      1 << 20),
-                           _pow2(max(8 * 2 * W, 1 << 12)))
-    for a, d in sj.rounds():
-        for i, s in enumerate(range(group.lo, group.hi)):
-            if d[s] > 0:
-                tables[i] = st.append(tables[i], _win_edges(
-                    sj.codes[i], sj.seg[i], sj.pos[i], int(a[s]), int(d[s]),
-                    fkeys, n_codes, W))
-    return [st.compact(st.flush_grow(t))[0] for t in tables]
+def _edge_blocks(sj, group: ShardGroup, fkeys, n_codes: int,
+                 block: int = _EDGE_BLOCK):
+    """The edge sweep, distance by distance over each local shard's own
+    segments (no exchange, so no window bounds a step): for a friend pair
+    (c1, c2) sharing the k-mer h, the edges (fwd position of (c1, h), rank
+    of (c1, c2)) and (fwd position of (c2, h), rank of (c2, c1)).  Per
+    local shard a list of (positions, friend ranks) blocks of about
+    ``block`` edges."""
+    n_f = fkeys.shape[0]
+    out = []
+    for i, s in enumerate(range(group.lo, group.hi)):
+        codes, seg, pos = sj.codes[i], sj.seg[i], sj.pos[i]
+        blocks, held, n_held = [], [], 0
+        for d in range(1, sj.Ds[s]):
+            b = sj.b(s, d)
+            if b <= d:
+                break
+            j = torch.nonzero(seg[:b - d] == seg[d:b]).squeeze(1)
+            c1, c2 = codes[j], codes[j + d]
+            key = c1 * n_codes + c2
+            r1 = torch.clamp(torch.searchsorted(fkeys, key), max=n_f - 1)
+            hit = fkeys[r1] == key
+            j, r1 = j[hit], r1[hit]
+            r2 = torch.searchsorted(fkeys, c2[hit] * n_codes + c1[hit])
+            del c1, c2, key, hit
+            held.append((torch.cat([pos[j], pos[j + d]]),
+                         torch.cat([r1, r2])))
+            n_held += 2 * j.shape[0]
+            if n_held >= block:
+                blocks.append(_joined(held))
+                held, n_held = [], 0
+        if held:
+            blocks.append(_joined(held))
+        out.append(blocks)
+    return out
 
 
-def _propagate(group: ShardGroup, p_parts, f_parts, n_p: int, n_f: int
+def _joined(parts):
+    """One (positions, friend ranks) block of a list of them."""
+    if len(parts) == 1:
+        return parts[0]
+    ps, fs = zip(*parts)
+    return torch.cat(ps), torch.cat(fs)
+
+
+def _propagate(group: ShardGroup, edges, n_p: int, n_f: int
                ) -> torch.Tensor:
     """Min-label fixpoint over the position <-> friend edges of every shard
-    (``p_parts[i]``, ``f_parts[i]``: local shard i's edges); labels start as
-    positions, so each position ends at its component's minimum."""
+    (``edges[i]``: local shard i's (positions, friend ranks) blocks);
+    labels start as positions, so each position ends at its component's
+    minimum."""
     dev = group.device
+    nl = len(edges)
     lab = torch.arange(n_p, device=dev)
     one = torch.ones((1, 1), dtype=torch.int64, device=dev)
     while True:
         STATS["rounds"] = STATS.get("rounds", 0) + 1
-        part_f = torch.stack([
-            torch.full((n_f,), _BIG, dtype=torch.int64, device=dev)
-            .scatter_reduce_(0, f, lab[p], "amin")
-            for p, f in zip(p_parts, f_parts)])
-        f_lab = group.all_reduce(part_f, "min")
-        part_p = torch.stack([
-            torch.full((n_p,), _BIG, dtype=torch.int64, device=dev)
-            .scatter_reduce_(0, p, f_lab[f], "amin")
-            for p, f in zip(p_parts, f_parts)])
-        new = torch.minimum(lab, group.all_reduce(part_p, "min"))
-        new = torch.minimum(new, new[new])   # pointer jump x2 (labels are
-        new = torch.minimum(new, new[new])   # held whole on every process)
-        changed = group.all_reduce(
-            one * bool((new != lab).any()), "max")
+        with timing.span("cluster.round", device=True):
+            part_f = torch.full((nl, n_f), _BIG, dtype=torch.int64,
+                                device=dev)
+            for i, blocks in enumerate(edges):
+                for p, f in blocks:
+                    part_f[i].scatter_reduce_(0, f, lab[p], "amin")
+            f_lab = group.all_reduce(part_f, "min")
+            del part_f
+            part_p = torch.full((nl, n_p), _BIG, dtype=torch.int64,
+                                device=dev)
+            for i, blocks in enumerate(edges):
+                for p, f in blocks:
+                    part_p[i].scatter_reduce_(0, p, f_lab[f], "amin")
+            del f_lab
+            new = torch.minimum(lab, group.all_reduce(part_p, "min"))
+            del part_p
+            new = torch.minimum(new, new[new])   # pointer jump x2 (labels
+            new = torch.minimum(new, new[new])   # are held whole)
+            changed = group.all_reduce(
+                one * bool((new != lab).any()), "max")
         if not int(changed[0]):
             return new
         lab = new
@@ -362,8 +409,8 @@ def _propagate_blocks(inc, group: ShardGroup, edges, n_f: int, target: int,
                       sharded_out: bool = False):
     """The fixpoint block by block: each block is a barcode-aligned range of
     positions (components never cross barcodes), labels are block-relative
-    and each shard contributes the slice of its p-sorted edges that falls
-    in the block.  ``sharded_out`` (a ShardedIncidence): the results land
+    and each shard contributes those of its edges whose position falls in
+    the block.  ``sharded_out`` (a ShardedIncidence): the results land
     in per-shard label runs aligned with ``inc.keys``; else one (n_pairs,)
     vector."""
     offs = inc.code_offsets
@@ -378,13 +425,15 @@ def _propagate_blocks(inc, group: ShardGroup, edges, n_f: int, target: int,
     blocks = _label_blocks(offs, inc.n_pairs, target)
     STATS["label_blocks"] = len(blocks)
     for p0, p1 in blocks:
-        p_parts, f_parts = [], []
-        for e in edges:
-            lo, hi = torch.searchsorted(e, torch.tensor(
-                [p0 * n_f, p1 * n_f], device=dev)).tolist()
-            p_parts.append(e[lo:hi] // n_f - p0)
-            f_parts.append(e[lo:hi] % n_f)
-        lab = p0 + _propagate(group, p_parts, f_parts, p1 - p0, n_f)
+        mine = []
+        for shard in edges:
+            mine.append([])
+            for p, f in shard:
+                j = torch.nonzero((p >= p0) & (p < p1)).squeeze(1)
+                if j.shape[0]:
+                    mine[-1].append((p[j] - p0, f[j]))
+        lab = p0 + _propagate(group, mine, p1 - p0, n_f)
+        del mine
         if not sharded_out:
             glob[p0:p1] = lab
             continue
@@ -403,14 +452,16 @@ def _local_canon(inc: Incidence, glob: torch.Tensor) -> torch.Tensor:
 def cluster_codes_sparse_dist(inc, group: ShardGroup,
                               min_friend_share: int = 8,
                               chunk: int = _CHUNK, flat: bool = False,
-                              label_block_pairs: int = 0):
+                              label_block_pairs: int = 0,
+                              edge_block: int = _EDGE_BLOCK):
     """Sharded ``cluster_codes_sparse``: the same canonical labels.
 
     ``inc`` is a whole Incidence (labels come back as one int64 tensor
     aligned with its forward CSR, or per-code slices unless ``flat``) or a
     ShardedIncidence (with ``flat``: :class:`ShardedLabels`, shard-resident).
     ``label_block_pairs > 0`` propagates in barcode-aligned blocks of about
-    that many pairs."""
+    that many pairs; ``edge_block`` is the edges a block of a shard's edges
+    holds (:func:`_edge_blocks`)."""
     STATS.clear()
     if isinstance(inc, ShardedIncidence) and not flat:
         inc = inc.to_host()
@@ -426,16 +477,20 @@ def cluster_codes_sparse_dist(inc, group: ShardGroup,
                 for i, k in enumerate(inc.keys)], sharded_lab=True)
         canon = _local_canon(inc, torch.arange(inc.n_pairs, device=dev))
     else:
-        sj = _shift_join_of(inc, group, chunk, with_positions=True)
-        edges = _edge_tables(sj, group, fkeys, inc.n_codes, inc.n_pairs)
-        STATS["edges"] = sum(e.shape[0] for e in edges)
+        with timing.span("cluster.edges", device=True):
+            sj = _shift_join_of(inc, group, chunk, with_positions=True)
+            edges = _edge_blocks(sj, group, fkeys, inc.n_codes, edge_block)
+            del sj
+        STATS["edges"] = sum(p.shape[0] for e in edges for p, _ in e)
+        STATS["edge_blocks"] = sum(len(e) for e in edges)
         n_f = fkeys.shape[0]
+        del fkeys
         if label_block_pairs:
             lab = _propagate_blocks(inc, group, edges, n_f,
                                     label_block_pairs, sharded_out=sharded)
         else:
-            lab = _propagate(group, [e // n_f for e in edges],
-                             [e % n_f for e in edges], inc.n_pairs, n_f)
+            lab = _propagate(group, edges, inc.n_pairs, n_f)
+        del edges
         if sharded:
             return canon_labels_sharded(
                 inc, lab, sharded_lab=bool(label_block_pairs))

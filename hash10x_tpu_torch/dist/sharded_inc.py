@@ -20,6 +20,12 @@
 
 Every structure holds this process's shards only: ``keys[i]`` is shard
 ``lo + i``'s ascending run of real pair keys (int64).
+
+A routing call is the span ``shard.route`` of the current timer
+(``utils/timing.py``) and fills its lanes through
+``sharded_sorted.to_lanes``, which counts them; a routing redone with wider
+lanes after an overflow adds 1 to ``shard.sweep_retries``; the device sorts
+add their elements to ``sorted_keys``.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 
 from .. import INT64_MAX
 from ..table.incidence import Incidence, incidence_from_sorted_pairs
+from ..utils import timing
 from . import sharded_sorted as SS
 from .group import ShardGroup
 
@@ -69,6 +76,7 @@ def _route_sorted(group: ShardGroup, rows: List[torch.Tensor],
             for x, (_, p) in zip(lanes, payloads)]
     out_k, out_p = [], []
     for i in range(group.n_local):
+        timing.add("sorted_keys", recv[0][i].shape[0])
         k, order = torch.sort(recv[0][i])
         real = k != INT64_MAX
         out_k.append(k[real])
@@ -85,11 +93,14 @@ def _route_with_retry(group, rows, splitters, full: int, what: str,
     cap = full if n == 1 else min(full, 2 * full // n + 4096)
     for attempt in range(4):
         try:
-            return _route_sorted(group, rows, splitters, cap, what, payload)
+            with timing.span("shard.route", device=True):
+                return _route_sorted(group, rows, splitters, cap, what,
+                                     payload)
         except SS.LaneOverflowError:
             if cap >= full or attempt == 3:
                 raise
             cap = min(full, 2 * cap)
+            timing.add("shard.sweep_retries")
 
 
 def build_sharded_incidence(dt: SS.ShardedSortedTable, n_kmers: int,
@@ -186,6 +197,7 @@ class ShardedIncidence:
         ksplit = torch.from_numpy(self.kmer_bounds[1:-1] * nc).to(g.device)
         key2, pos = [], []
         for i, k in enumerate(self.keys):
+            timing.add("sorted_keys", k.shape[0])
             k2, order = torch.sort((k % nk) * nc + k // nk)
             key2.append(k2)
             pos.append(int(self.pair_offsets[g.lo + i])
@@ -226,6 +238,7 @@ class ShardedIncidence:
         for k2, p, run in zip(self.inv_keys, self.inv_pos, lens_of):
             ln = torch.repeat_interleave(run, run)
             # stable by length descending keeps key order inside a length
+            timing.add("sorted_keys", ln.shape[0])
             order = torch.argsort(D - ln, stable=True)
             k2s, lns = k2[order], ln[order]
             new = torch.ones_like(k2s, dtype=torch.bool)
@@ -283,6 +296,7 @@ class ShardedLabels:
         g, K = self.group, self._K()
         uniq, cnt = [], []
         for i in range(g.n_local):
+            timing.add("sorted_keys", inc_sh.keys[i].shape[0])
             u, c = torch.unique(self._comb(inc_sh, i, K), sorted=True,
                                 return_counts=True)
             uniq.append(u)
@@ -324,6 +338,7 @@ def split_sharded(inc_sh: ShardedIncidence, labels_sh: ShardedLabels
     K = labels_sh._K()
     new_keys = []
     for i, k in enumerate(inc_sh.keys):
+        timing.add("sorted_keys", 2 * k.shape[0])   # unique, then sort
         _, rank = torch.unique(labels_sh._comb(inc_sh, i, K), sorted=True,
                                return_inverse=True)
         new_keys.append(torch.sort((int(moff[g.lo + i]) + rank) * nk
@@ -354,6 +369,7 @@ def canon_labels_sharded(inc_sh: ShardedIncidence, lab,
         K = P + 1
         combined = first * K + local
         base = first * K
+        timing.add("sorted_keys", P)
         u, inv = torch.unique(combined, sorted=True, return_inverse=True)
         canon.append(inv - torch.searchsorted(u, base))
         n_mol += u.shape[0]

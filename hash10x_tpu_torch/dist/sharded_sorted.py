@@ -22,6 +22,17 @@ counting again with doubled lanes (``--laneCapacity``).
 Also the sharded snapshot of the JAX package (per-shard ``.npz`` files and
 a JSON manifest, the same files): a snapshot reloads onto any power-of-two
 shard count.
+
+What the routing records on the current timer (``utils/timing.py``; the
+engine's while one of its stages runs): a routing call (the destination
+sort, the lane packing and the exchange: :func:`route_low` and
+``SortedCountStep._route_range``, and ``sharded_inc``'s) is the span
+``shard.route``, with the stream clock; :func:`to_lanes` adds the lane
+slots it fills to ``shard.route_slots`` and the keys it places in them,
+pads and drops left out, to ``shard.route_keys``, summed on the device;
+the destination sorts add their elements to ``sorted_keys``.  Inside a
+CUDA graph's capture the span records nothing and the counters are tallied
+for each replay (``engine_steps``).
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from .. import INT64_MAX
 from ..hashspec import HashSpec, U64MAX
 from ..kernels import minimizer
 from ..table import sorted_table as st
+from ..utils import timing
 from .group import ShardGroup
 
 __all__ = ["LaneOverflowError", "ShardedSortedTable", "SortedCountStep",
@@ -96,6 +108,8 @@ def to_lanes(starts: torch.Tensor,
     valid = lane_pos < seg[..., None]                          # (rows, n, cap)
     idx = torch.where(valid, starts[:, :-1, None] + lane_pos, 0)
     nl, n = seg.shape
+    timing.add("shard.route_slots", nl * n * cap)
+    timing.add_device("shard.route_keys", torch.clamp(seg, max=cap).sum())
     flat_idx = idx.reshape(nl, n * cap)
     lanes = [torch.where(valid, x.gather(1, flat_idx).reshape(nl, n, cap), pad)
              for x, pad in payloads]
@@ -122,14 +136,16 @@ def route_low(group: ShardGroup, keys: torch.Tensor, cap: int, S: int = 1):
     through ``cap``-slot lanes, each batch in lanes of its own: ->
     (received ``(n_local * S, n * cap)`` keys, drops per row)."""
     n = group.n_shards
-    dest = torch.where(keys != INT64_MAX, keys & (n - 1), n)
-    ds, order = torch.sort(dest, dim=1, stable=True)
-    starts = torch.searchsorted(
-        ds, torch.arange(n + 1, device=keys.device).expand(keys.shape[0], -1)
-        .contiguous())
-    (lanes,), drop = to_lanes(starts, [(keys.gather(1, order), INT64_MAX)],
-                              cap)
-    return _exchange(group, lanes, INT64_MAX, S), drop
+    with timing.span("shard.route", device=True):
+        dest = torch.where(keys != INT64_MAX, keys & (n - 1), n)
+        timing.add("sorted_keys", dest.numel())
+        ds, order = torch.sort(dest, dim=1, stable=True)
+        starts = torch.searchsorted(
+            ds, torch.arange(n + 1, device=keys.device)
+            .expand(keys.shape[0], -1).contiguous())
+        (lanes,), drop = to_lanes(
+            starts, [(keys.gather(1, order), INT64_MAX)], cap)
+        return _exchange(group, lanes, INT64_MAX, S), drop
 
 
 class ShardedSortedTable:
@@ -337,15 +353,17 @@ class SortedCountStep:
         j``: local shard i's emissions of batch j): -> (received hashes,
         barcodes or None, drops per row) as ``(n_local * S, n * cap)``
         rows."""
-        hs, order = torch.sort(flat_h, dim=1, stable=True)
-        payloads = [(hs, INT64_MAX)]
-        if flat_bc is not None:
-            payloads.append((flat_bc.gather(1, order), -1))
-        lanes, drop = to_lanes(self._range_starts(hs), payloads, cap)
-        m = self.group.lane_width(lanes[0], INT64_MAX)
-        recv = [_exchange(self.group, x, p, S, m)
-                for x, (_, p) in zip(lanes, payloads)]
-        return recv[0], (recv[1] if flat_bc is not None else None), drop
+        with timing.span("shard.route", device=True):
+            timing.add("sorted_keys", flat_h.numel())
+            hs, order = torch.sort(flat_h, dim=1, stable=True)
+            payloads = [(hs, INT64_MAX)]
+            if flat_bc is not None:
+                payloads.append((flat_bc.gather(1, order), -1))
+            lanes, drop = to_lanes(self._range_starts(hs), payloads, cap)
+            m = self.group.lane_width(lanes[0], INT64_MAX)
+            recv = [_exchange(self.group, x, p, S, m)
+                    for x, (_, p) in zip(lanes, payloads)]
+            return recv[0], (recv[1] if flat_bc is not None else None), drop
 
     def check_table(self, t: ShardedSortedTable) -> None:
         if t.routing != self.routing:

@@ -42,8 +42,9 @@ exchanges cross the host).
 
 ``stats`` holds what the engine's timer (``utils/timing.py``) recorded since
 the engine was made or last reset, as flat numbers, none of them read from
-the device: the counters ``dispatches`` (multi-batch steps sent to the
-device in count and incidence, sharded or not), ``flushes`` (sort-merges of
+the device but the sharded paths' ``shard.route_keys`` (below): the
+counters ``dispatches`` (multi-batch steps sent to the device in count and
+incidence, sharded or not), ``flushes`` (sort-merges of
 an append buffer into a table during the engine's stages),
 ``graph_captures`` (step shapes captured into CUDA graphs), ``sorted_keys``
 (elements put through the main path's device sorts, the lane's barcode
@@ -64,7 +65,14 @@ capture); ``table.flush`` (``table/sorted_table.py``); and
 ``cluster.edges`` and ``cluster.round`` (``cluster/sparse.py``).  On CUDA,
 ``table.flush``, ``cluster.cooccur``, ``cluster.edges`` and
 ``cluster.round`` also give ``N.device_s``: the stream's seconds between
-their marks.
+their marks.  The sharded paths (``n_shards > 1``) record the same names
+(``cluster.*`` from ``cluster/sparse_dist.py``), the span ``shard.route``
+(every routing outside a CUDA graph, with ``.device_s`` on CUDA) and three
+more counters, held from a sharded count or incidence pass on:
+``shard.route_keys`` (keys placed in send lanes, summed on the device and
+read with ``stats``), ``shard.route_slots`` (the lanes' slots) and
+``shard.sweep_retries`` (passes, sweeps and routings run again with wider
+lanes after a lane overflow).
 """
 
 from __future__ import annotations
@@ -1046,6 +1054,7 @@ class Engine:
         lanes (the counts of a pass with drops cannot be patched), at most
         three times.  The grown ``lane_capacity`` stays for later passes."""
         cfg = self.cfg
+        self.timer.add("shard.sweep_retries", 0)   # held from here on
         for attempt in range(4):
             try:
                 return once(*args)
@@ -1054,6 +1063,7 @@ class Engine:
                     raise
                 cfg.lane_capacity = 2 * (cfg.lane_capacity or e.auto_cap
                                          or 8192)
+                self.timer.add("shard.sweep_retries")
                 self.timer.stage(f"{what}[sharded]: lane overflow ({e}); "
                                  "retrying with --laneCapacity "
                                  f"{cfg.lane_capacity}")

@@ -44,9 +44,12 @@ whose exchanges cross the host.
 
 A capture is the host-clock span ``step.capture`` and adds 1 to the counter
 ``graph_captures`` of the current timer (``utils/timing.py``).  The counters
-its captured work adds (the dedup sorts' ``sorted_keys``) are tallied apart
-at capture, and each replay adds them, as ``minimizer.count_replay`` adds
-the recorded launches; the warm-up call records nothing.
+its captured work adds (the dedup sorts' ``sorted_keys``, a sharded step's
+``shard.route_slots``) are tallied apart at capture, and each replay adds
+them, as ``minimizer.count_replay`` adds the recorded launches; a counter
+the work sums on the device (``shard.route_keys``) is a static output of
+the graph, which each replay adds in stream order.  The warm-up call
+records nothing.
 """
 
 from __future__ import annotations
@@ -259,6 +262,9 @@ class _StepGraph:
         cur.wait_stream(side)
         self.launches = minimizer.CAPTURED - n0
         self.counters = tally.counters
+        # device scalars its captured work counts (``timing.add_device``):
+        # static outputs that each replay overwrites
+        self.device_counters = tally.device_counters
 
     def replay(self, om: np.ndarray):
         """Replay on the current stream with the (2, S) input ``om``.  The
@@ -271,4 +277,6 @@ class _StepGraph:
         minimizer.count_replay(self.launches)
         for name, n in self.counters.items():
             timing.add(name, n)
+        for name, x in self.device_counters.items():
+            timing.add_device(name, x)
         return self.out

@@ -16,7 +16,9 @@ marks, idle time inside the span included (resolved events go back to a pool
 of the process, which every timer draws from).
 Under ``torch.profiler`` a span also opens a ``record_function`` of its name,
 so it lies on the profiler's timeline.  ``StageTimer.add(name, n)`` adds to a
-counter.  A span adds no synchronisation, no device allocation and no read
+counter; ``StageTimer.add_device(name, x)`` adds a device scalar to one
+without reading it: the sum stays on the device until the counters are
+read.  A span adds no synchronisation, no device allocation and no read
 of a device value: its events are resolved (``Event.query``, then
 ``elapsed_time``) when the outermost span closes or the totals are read,
 and an event the stream has not reached yet stays for a later read.  Names
@@ -39,7 +41,8 @@ import time
 
 import torch
 
-__all__ = ["StageTimer", "span", "add", "recording", "kernel_device_ms"]
+__all__ = ["StageTimer", "span", "add", "add_device", "recording",
+           "kernel_device_ms"]
 
 _current = None   # the timer whose span is open innermost, or None
 _NULL = contextlib.nullcontext()
@@ -59,6 +62,14 @@ def add(name: str, n: int = 1) -> None:
     t = _current
     if t is not None:
         t.add(name, n)
+
+
+def add_device(name: str, x: torch.Tensor) -> None:
+    """Add the device scalar ``x`` to the current timer's counter ``name``
+    (see :meth:`StageTimer.add_device`), if a timer is current."""
+    t = _current
+    if t is not None:
+        t.add_device(name, x)
 
 
 @contextlib.contextmanager
@@ -163,12 +174,30 @@ class StageTimer:
         """Add ``n`` to the counter ``name``."""
         self.counters[name] = self.counters.get(name, 0) + n
 
+    def add_device(self, name: str, x: torch.Tensor) -> None:
+        """Add the integer scalar tensor ``x`` to the counter ``name``
+        without reading it: the sum is kept on ``x``'s device (an
+        operation in stream order, so a CUDA graph can record it) and read
+        once, when the counters are read (:meth:`counter_totals`)."""
+        x = x.reshape(()).to(torch.int64)
+        prev = self.device_counters.get(name)
+        self.device_counters[name] = x if prev is None else prev + x
+
+    def counter_totals(self) -> dict:
+        """The counters by name, those summed on the device read back
+        (one synchronisation where there are any)."""
+        out = dict(self.counters)
+        for name, x in self.device_counters.items():
+            out[name] = out.get(name, 0) + int(x)
+        return out
+
     def clear(self) -> None:
         """Forget every span and counter recorded so far."""
         # (name, parent) -> [n, host s, children's host s, device s or None]
         self._spans = {}
         self._pending = []   # (record, start event, end event)
         self.counters = {}
+        self.device_counters = {}   # name -> a device scalar (add_device)
         self._mark = ({}, {})   # the totals at the last JSONL record
 
     def _event(self) -> torch.cuda.Event:
@@ -223,7 +252,7 @@ class StageTimer:
     def stats(self) -> dict:
         """The counters by name and, for each span name N, ``N.host_s``,
         ``N.device_s`` (CUDA spans) and ``N.n``, as one flat dict."""
-        out = dict(self.counters)
+        out = self.counter_totals()
         for name, d in self.span_totals().items():
             for k, v in d.items():
                 out[f"{name}.{k}"] = v
@@ -233,7 +262,7 @@ class StageTimer:
         """(spans, counters) recorded since the last JSONL record.  Spans
         opened inside another only: a stage's own span, if it has one,
         closes after its line, and its wall is the line's."""
-        tot, cnt = self.span_totals(roots=False), dict(self.counters)
+        tot, cnt = self.span_totals(roots=False), self.counter_totals()
         t0, c0 = self._mark
         self._mark = (tot, cnt)
         spans = {}
