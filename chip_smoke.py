@@ -5,9 +5,9 @@ occurrence-count and checkpoint paths at full lane scale, and byte-level
 checks against the C stand-in and the CPU.
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
-(``python3 chip_smoke.py --only 23,24,25,26`` builds the kernel and runs
-only the phases named; its last line is the same JSON result, with no
-kernels line.)
+(``python3 chip_smoke.py --only 23,24,25,26,27`` builds the kernel and
+runs only the phases named; its last line is the same JSON result, with a
+kernels line only for phase 27.)
 
 Phases (any failure exits non-zero):
   1. device   - the card's name and power limit (nvidia-smi) and torch's name
@@ -39,7 +39,11 @@ Phases (any failure exits non-zero):
                 through the kernel (launch counter > 0, plain calls == 0) in
                 multi-batch steps: every step one CUDA graph replay holding
                 one sketch launch (launches = replays + one warm-up launch
-                per captured graph), fewer launches than batches
+                per captured graph), fewer launches than batches; friend
+                clustering through the union-find kernel (its launch count,
+                zeroed before the run, >= 1; one sweep; cluster.uf_edges =
+                the edges): that count is the kernels line's union_find
+                launches
   5. c_ref    - native/c_ref/hash10x_ref.c on the same lane: equal count
                 table, byte-identical report, and byte-identical cluster dump
                 on a 50k-read sub-lane
@@ -132,11 +136,12 @@ Phases (any failure exits non-zero):
                 generator's wall and host RSS
  24. stress   - the JAX package's stress lane (tests_tpu/probe_edge_stress.py:
                 synth_incidence(50_000, 400_000, 30)) through build_incidence
-                and clustering at min_friend_share 4: the default edge
-                block, 2^17-edge blocks and 4 shards with 2^17-pair label
-                blocks (>= 8 blocks each), byte-equal labels, and equal to
-                the CPU's; cold and warm walls, peak device memory, pairs,
-                friend keys, edges, rounds, each co-occurrence reduction
+                and clustering at min_friend_share 4: one card (one
+                union-find sweep) and 4 shards with 2^17-pair label blocks
+                (>= 8), byte-equal labels, and equal to the CPU's rounds in
+                2^17-edge blocks (>= 8); cold and warm walls, peak device
+                memory, pairs, friend keys, edges, rounds, each
+                co-occurrence reduction
  25. paths    - the paths off the main path on lane20x (phase 23's .fqb):
                 --maxFriends 256 on one GPU and at --shards 4, stdout
                 byte-identical, the cluster stage under 60 s, and
@@ -161,6 +166,20 @@ Phases (any failure exits non-zero):
                 totals summing to the retained k-mers; per stage (cribBuild
                 and cribReport too) wall, peak and reserved device memory,
                 host RSS
+ 27. union-find - friend clustering's union-find kernel
+                (csrc/union_find.cu) against the plain rounds
+                (cluster/sparse.py _rounds) on the card: synthesised graphs
+                shaped as the clustering's (barcode blocks of positions and
+                friend nodes, edges in random order) of 1,922,162,924 edges
+                (the chr20 slice's: ~87M positions, ~30M friend nodes,
+                ~0.47 GB of int32 parents, beyond L2) and of 2e8 edges
+                (parents in L2), each at int32 and int64 parents, and the
+                edges of the 20k ragged lane's --codeClusters run on CUDA
+                (whose labels also equal the CPU run's): labels
+                byte-identical, one launch and cluster.uf_edges = the edges;
+                the kernel's device ms, the plain rounds' ms and the bound
+                (union_find.bound); the kernels line's entry is the
+                slice-sized graph's
 The last two lines of stdout before the result are a JSON line describing
 the kernels and the card's name and power limit; the last line is the JSON
 result {"ok": true, "device": {...}}.
@@ -419,15 +438,18 @@ def phase_main(torch, MK, ES, run, lane):
             "--readFQB", lane, "--hashInfo", "--hashDist", "--codeClusters",
             "--clusterSplit", "--clusterReport"]
     out, err = io.StringIO(), io.StringIO()
+    from hash10x_tpu_torch.cluster import sparse as SP
+    from hash10x_tpu_torch.kernels import union_find as UF
     torch.cuda.reset_peak_memory_stats()
     MK.LAUNCHES = 0
     MK.PLAIN_CALLS = 0
     ES.REPLAYS = 0
+    UF.LAUNCHES = 0
     t0 = time.monotonic()
     eng = run(argv, out, err)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches, plain = MK.LAUNCHES, MK.PLAIN_CALLS
+    launches, plain, uf_launches = MK.LAUNCHES, MK.PLAIN_CALLS, UF.LAUNCHES
     sys.stderr.write(err.getvalue())
     n_batches = len(eng._lane_cache[3])
     if launches <= 0 or plain != 0:
@@ -438,6 +460,15 @@ def phase_main(torch, MK, ES, run, lane):
           f"(count and incidence), {replays} CUDA graph replays of "
           f"{graphs} captured graphs, kernel launches {launches}, plain "
           f"calls {plain}")
+    stats = eng.stats
+    if uf_launches < 1 or SP.STATS["rounds"] != 1 or SP.STATS["edges"] < 1 \
+            or stats["cluster.uf_edges"] != SP.STATS["edges"]:
+        fail(f"main path: union-find launches {uf_launches}, sweeps "
+             f"{SP.STATS['rounds']}, cluster.uf_edges "
+             f"{stats['cluster.uf_edges']} of {SP.STATS['edges']} edges")
+    print(f"main path: union-find launches {uf_launches}, one sweep, "
+          f"cluster.uf_edges {stats['cluster.uf_edges']} = the edges, "
+          f"cluster.uf_hooks {stats['cluster.uf_hooks']}")
     walls = stage_walls(err.getvalue())
     phases = {"count": walls["count"],
               "filter+incidence": walls["filter"] + walls["incidence"],
@@ -453,7 +484,7 @@ def phase_main(torch, MK, ES, run, lane):
     text = out.getvalue()
     if "table slots" not in text or "code 0 nKmers" not in text:
         fail("main path output lacks --hashInfo or --clusterReport lines")
-    return eng, text, launches, n_batches
+    return eng, text, launches, n_batches, uf_launches
 
 
 def stage_walls(err_text):
@@ -532,12 +563,9 @@ def phase_c_ref(torch, st, run, eng, text, reads, bc_ids, tmp):
           f"{ta.count(chr(10))} lines byte-identical")
 
 
-def phase_cuda_vs_cpu(run, tmp, w=W, MK=None):
-    """The CLI on CUDA and on the CPU (plain versions) on a small lane with
-    N bases, ragged and short reads and reads without a barcode: stdout and
-    both dump files must be byte-identical.  With ``MK`` the CUDA run's
-    kernel launches are counted (from 0) and returned; it fails unless
-    they are > 0 with no plain call."""
+def ragged_lane(tmp):
+    """(reads, path): a 20k-read lane with N bases, ragged and short reads
+    and reads without a barcode, 20 reads a barcode, as an .fqb in tmp."""
     from hash10x_tpu_torch.io.fastq import ReadBatch
     from hash10x_tpu_torch.io.fqb import from_read_batch, save_fqb
     rng = np.random.default_rng(SEED)
@@ -553,6 +581,16 @@ def phase_cuda_vs_cpu(run, tmp, w=W, MK=None):
                      20).astype(np.uint32)
     lane = os.path.join(tmp, "ragged.fqb")
     save_fqb(lane, from_read_batch(ReadBatch(codes, lengths, keys)))
+    return n, lane
+
+
+def phase_cuda_vs_cpu(run, tmp, w=W, MK=None):
+    """The CLI on CUDA and on the CPU (plain versions) on a small lane with
+    N bases, ragged and short reads and reads without a barcode: stdout and
+    both dump files must be byte-identical.  With ``MK`` the CUDA run's
+    kernel launches are counted (from 0) and returned; it fails unless
+    they are > 0 with no plain call."""
+    n, lane = ragged_lane(tmp)
     outs = []
     launches = plain = 0
     for dev in ("cuda", "cpu"):
@@ -2201,12 +2239,13 @@ def phase_stress(torch, MK, device="cuda"):
     """Phase 24: the JAX package's stress lane
     (``tests_tpu/probe_edge_stress.py``: ``synth_incidence(50_000, 400_000,
     30)``, seed 5) through ``build_incidence`` and clustering at
-    min_friend_share 4 on CUDA: ``cluster_codes_sparse`` with the default
-    edge block and with 2^17-edge blocks (at least 8 blocks), and
-    ``cluster_codes_sparse_dist`` at 4 shards with label blocks of 2^17
-    pairs (at least 8); the three label arrays and the CPU's byte-equal.
-    Cold and warm walls, peak device memory, pairs, friend keys, edges,
-    rounds and the wall of each co-occurrence reduction."""
+    min_friend_share 4 on CUDA: ``cluster_codes_sparse`` (one union-find
+    sweep) and ``cluster_codes_sparse_dist`` at 4 shards with label blocks
+    of 2^17 pairs (at least 8); the two label arrays and the CPU's, whose
+    rounds take 2^17-edge blocks (at least 8), byte-equal.  Cold and warm
+    walls,
+    peak device memory, pairs, friend keys, edges, rounds and the wall of
+    each co-occurrence reduction."""
     from hash10x_tpu_torch.bench import synth_incidence
     from hash10x_tpu_torch.cluster import sparse as SP
     from hash10x_tpu_torch.cluster import sparse_dist as SPD
@@ -2220,10 +2259,8 @@ def phase_stress(torch, MK, device="cuda"):
           f"{time.monotonic() - t0:.3f} s", flush=True)
     runs = {}
     for name, fn, stats, key in (
-            ("default edge block", lambda: SP.cluster_codes_sparse(inc, 4),
-             SP.STATS, "edge_blocks"),
-            ("edge_block 2^17", lambda: SP.cluster_codes_sparse(
-                inc, 4, edge_block=1 << 17), SP.STATS, "edge_blocks"),
+            ("one card", lambda: SP.cluster_codes_sparse(inc, 4),
+             SP.STATS, "rounds"),
             ("4 shards, label blocks 2^17",
              lambda: SPD.cluster_codes_sparse_dist(
                  inc, ShardGroup.of_process(4, device), min_friend_share=4,
@@ -2238,7 +2275,10 @@ def phase_stress(torch, MK, device="cuda"):
             torch.cuda.synchronize()
             walls.append(time.monotonic() - t0)
         runs[name] = lab.cpu().numpy().tobytes()
-        if name != "default edge block" and stats[key] < 8:
+        if key == "rounds" and stats[key] != 1:
+            fail(f"stress {name}: {stats[key]} sweeps over the edges (the "
+                 f"union-find kernel makes one)")
+        if key == "label_blocks" and stats[key] < 8:
             fail(f"stress {name}: {stats[key]} blocks (< 8)")
         print(f"stress {name}: cold {walls[0]:.4f} s, warm {walls[1]:.4f} "
               f"s, peak device memory "
@@ -2246,15 +2286,19 @@ def phase_stress(torch, MK, device="cuda"):
               + ", ".join(f"{k} {v}" for k, v in stats.items()), flush=True)
     t0 = time.monotonic()
     cpu = SP.cluster_codes_sparse(
-        build_incidence(ks, cs, 400_000, 50_000, "cpu"), 4)
+        build_incidence(ks, cs, 400_000, 50_000, "cpu"), 4,
+        edge_block=1 << 17)
     cpu_s = time.monotonic() - t0
-    if any(r != runs["default edge block"] for r in runs.values()) \
-            or cpu.numpy().tobytes() != runs["default edge block"]:
+    if SP.STATS["edge_blocks"] < 8:
+        fail(f"stress on the CPU: {SP.STATS['edge_blocks']} blocks (< 8)")
+    if any(r != runs["one card"] for r in runs.values()) \
+            or cpu.numpy().tobytes() != runs["one card"]:
         fail("stress: the label arrays differ")
-    print(f"stress: labels ({inc.n_pairs} int64) byte-equal across the "
-          f"default edge block, 2^17-edge blocks, 4 shards with label "
-          f"blocks and the CPU (incidence + clustering on the CPU "
-          f"{cpu_s:.3f} s)", flush=True)
+    print(f"stress: labels ({inc.n_pairs} int64) byte-equal across one "
+          f"card, 4 shards with label blocks and the CPU (incidence + "
+          f"clustering on the CPU "
+          f"{cpu_s:.3f} s, {SP.STATS['rounds']} rounds of "
+          f"{SP.STATS['edge_blocks']} edge blocks)", flush=True)
 
 
 # -- phases 25-26: the paths off the main path on lane20x ---------------------
@@ -2562,8 +2606,188 @@ def phase_crib_scale(torch, MK, ES, run, tmp):
     return crib_launches
 
 
+# -- phase 27: friend clustering's union-find kernel ----------------------------
+
+UF_SLICE_EDGES = 1_922_162_924   # the chr20 slice's edges: parents beyond L2
+UF_EDGES = 200_000_000   # a smaller graph, whose int32 parents fit L2
+UF_BLOCK_P = 738         # positions a barcode holds (the slice: 88.5M / 120k)
+UF_BLOCK_F = 256         # friend nodes a barcode holds (the slice: 30.9M / 120k)
+UF_MOLECULES = 3         # components a barcode holds (the slice: one)
+UF_EDGES_PER_P = 22      # edges a position (the slice: 1.92G / 88.5M)
+UF_CHUNK = 1 << 27       # edges synthesised at once
+
+
+def synth_friend_graph(torch, n_edges, seed, device):
+    """(p_e, f_e, n_p, n_f): a bipartite (position, friend) graph shaped as
+    friend clustering's: barcodes of UF_BLOCK_P contiguous positions and
+    UF_BLOCK_F contiguous friend ranks, each friend node joining random
+    positions of one of its barcode's UF_MOLECULES molecules, the edges in
+    random order (as ``sparse._edges`` gives them), int64, made on the
+    device from ``seed`` UF_CHUNK edges at a time."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    blocks = -(-n_edges // (UF_BLOCK_P * UF_EDGES_PER_P))
+    n_f, n_p = blocks * UF_BLOCK_F, blocks * UF_BLOCK_P
+    mol_p = UF_BLOCK_P // UF_MOLECULES
+    p_e = torch.empty(n_edges, dtype=torch.int64, device=device)
+    f_e = torch.empty_like(p_e)
+    for s in range(0, n_edges, UF_CHUNK):
+        m = min(UF_CHUNK, n_edges - s)
+        f = torch.randint(0, n_f, (m,), generator=g, device=device)
+        mol = f % UF_BLOCK_F % UF_MOLECULES
+        p_e[s:s + m] = (f // UF_BLOCK_F * UF_BLOCK_P + mol * mol_p
+                        + torch.randint(0, mol_p, (m,), generator=g,
+                                        device=device))
+        f_e[s:s + m] = f
+    return p_e, f_e, n_p, n_f
+
+
+def events_ms(torch, fn, n=3):
+    """Milliseconds per call of ``fn()`` (host work included) between CUDA
+    events, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def uf_graph(torch, SP, UF, n_edges):
+    """The union-find kernel against the plain rounds on a synthesised
+    graph of ``n_edges`` edges: labels byte-identical at int32 and int64
+    parents, or fail; prints and returns (device ms (int32), plain ms,
+    ``propagate_labels`` ms, bound ms)."""
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    p_e, f_e, n_p, n_f = synth_friend_graph(torch, n_edges, SEED, dev)
+    torch.cuda.synchronize()
+    gen_s = time.monotonic() - t0
+    lab, hooks = UF.components(p_e, f_e, n_p, n_f)
+    wide, _ = UF._launch(p_e, f_e, n_p, n_f, wide=True)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    plain = SP._rounds(p_e, f_e, n_p, n_f, SP._EDGE_BLOCK)
+    torch.cuda.synchronize()
+    cold_s, rounds = time.monotonic() - t0, SP.STATS["rounds"]
+    if not (torch.equal(lab, plain) and torch.equal(wide, plain)):
+        fail(f"union-find: kernel labels differ from the plain rounds' on "
+             f"the synthesised graph of {n_edges} edges")
+    comps = torch.unique(plain).shape[0]
+    del lab, wide, plain
+    device_ms = kernel_device_ms(
+        torch, lambda: UF._launch(p_e, f_e, n_p, n_f, wide=False), n=5)
+    wide_ms = kernel_device_ms(
+        torch, lambda: UF._launch(p_e, f_e, n_p, n_f, wide=True), n=5)
+    plain_ms = events_ms(
+        torch, lambda: SP._rounds(p_e, f_e, n_p, n_f, SP._EDGE_BLOCK), n=2)
+    ms = events_ms(torch, lambda: SP.propagate_labels(p_e, f_e, n_p, n_f))
+    nbytes, bound_ms = UF.bound(n_edges, n_p)
+    print(f"union-find: synthesised graph {n_edges} edges (made in "
+          f"{gen_s:.3f} s), {n_p} positions, {n_f} friend nodes, "
+          f"{n_p + n_f} nodes ({(n_p + n_f) * 4 / 1e6:.1f} MB of int32 "
+          f"parents), {comps} position components; labels byte-identical "
+          f"to the plain rounds ({rounds} rounds, {cold_s:.3f} s cold) at "
+          f"int32 and int64 parents; links {int(hooks)}; device ms "
+          f"{device_ms:.3f} (int32), {wide_ms:.3f} (int64); propagate_labels "
+          f"{ms:.3f} ms a call; plain rounds {plain_ms:.3f} ms; bound "
+          f"{bound_ms:.3f} ms ({nbytes} bytes), share "
+          f"{bound_ms / device_ms:.4f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+    del p_e, f_e
+    free_device(torch)
+    return device_ms, plain_ms, ms, bound_ms
+
+
+def phase_propagate(torch, run, tmp, main_launches=None):
+    """Phase 27: the union-find kernel (``kernels/union_find.py``) against
+    the plain rounds (``sparse._rounds``) on the card: on synthesised
+    graphs of UF_SLICE_EDGES edges (the chr20 slice's count and shape,
+    parents beyond L2) and of UF_EDGES edges (parents in L2) at both parent
+    widths, and on the 20k ragged lane's clustering (the CLI with
+    --codeClusters on CUDA: the edges recorded as ``propagate_labels`` gets
+    them; the labels also equal the CPU run's).  Labels byte-identical;
+    device ms of the kernel (kernel_device_ms), the plain rounds' ms (CUDA
+    events), the bound (``union_find.bound``), rounds, links and launches.
+    Returns the kernels line's entry: the slice-sized graph's times and
+    ``main_launches`` (phase 4's count), or without it the 20k lane CLI
+    run's count."""
+    from hash10x_tpu_torch.cluster import sparse as SP
+    from hash10x_tpu_torch.kernels import union_find as UF
+    t0 = time.monotonic()
+    UF.build()
+    print(f"union-find build: {time.monotonic() - t0:.3f} s", flush=True)
+    device_ms, plain_ms, ms, bound_ms = uf_graph(torch, SP, UF,
+                                                 UF_SLICE_EDGES)
+    uf_graph(torch, SP, UF, UF_EDGES)
+
+    n, lane = ragged_lane(tmp)
+    seen = {}
+    propagate = SP.propagate_labels
+
+    def recording(p_e, f_e, n_p, n_f, edge_block=SP._EDGE_BLOCK):
+        seen.update(edges=(p_e, f_e, n_p, n_f))
+        return propagate(p_e, f_e, n_p, n_f, edge_block)
+    labels = {}
+    for d in ("cuda", "cpu"):
+        SP.propagate_labels = recording
+        UF.LAUNCHES = 0
+        try:
+            eng = run(["--device", d, "-k", str(K), "-w", str(W), "-r",
+                       str(SEED), "--batchReads", "1024", "--friendShare",
+                       "4", "--readFQB", lane, "--codeClusters"],
+                      io.StringIO(), io.StringIO())
+        finally:
+            SP.propagate_labels = propagate
+        launched = UF.LAUNCHES
+        labels[d] = eng.cluster_labels.cpu().numpy().tobytes()
+        if d == "cuda":
+            torch.cuda.synchronize()
+            stats = eng.stats
+            p_e, f_e, n_p, n_f = seen["edges"]
+            plain = SP._rounds(p_e, f_e, n_p, n_f, SP._EDGE_BLOCK)
+            kernel, _ = UF.components(p_e, f_e, n_p, n_f)
+            if launched != 1 or not torch.equal(kernel, plain) \
+                    or stats["cluster.uf_edges"] != p_e.shape[0]:
+                fail(f"union-find on the {n}-read lane: launches "
+                     f"{launched}, uf_edges "
+                     f"{stats['cluster.uf_edges']} of {p_e.shape[0]}, "
+                     f"labels equal {torch.equal(kernel, plain)}")
+            lane_ms = kernel_device_ms(
+                torch, lambda: UF.components(p_e, f_e, n_p, n_f), n=20)
+            print(f"union-find: {n}-read lane, {p_e.shape[0]} edges, {n_p} "
+                  f"positions, {n_f} friend nodes: CLI run launches "
+                  f"{launched}; kernel labels = plain rounds' "
+                  f"({SP.STATS['rounds']} rounds); cluster.uf_edges "
+                  f"{stats['cluster.uf_edges']}, cluster.uf_hooks "
+                  f"{stats['cluster.uf_hooks']}; device ms {lane_ms:.4f}",
+                  flush=True)
+            if main_launches is None:
+                main_launches = launched
+            del eng, p_e, f_e, plain, kernel
+        elif launched != 0:
+            fail(f"union-find: the CPU run launched the kernel {launched} "
+                 f"times")
+    if labels["cuda"] != labels["cpu"]:
+        fail(f"union-find: the {n}-read lane's labels differ between CUDA "
+             f"and the CPU")
+    print(f"union-find: {n}-read lane labels byte-identical on CUDA and the "
+          f"CPU", flush=True)
+    return {"name": "union_find", "route": "cuda",
+            "source": "hash10x_tpu_torch/csrc/union_find.cu",
+            "replaces": None, "launches": main_launches,
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "device_ms": device_ms, "bound_share": bound_ms / device_ms}
+
+
 def run_only(torch, MK, ES, run, only):
-    """``--only 23,24,25,26``: after the build, only the phases named."""
+    """``--only 23,24,25,26,27``: after the build, only the phases named."""
+    kernels = []
     with tempfile.TemporaryDirectory() as tmp:
         lane = ref = None
         if 23 in only:
@@ -2574,6 +2798,10 @@ def run_only(torch, MK, ES, run, only):
             phase_paths(torch, MK, ES, run, tmp, lane, ref)
         if 26 in only:
             phase_crib_scale(torch, MK, ES, run, tmp)
+        if 27 in only:
+            kernels.append(phase_propagate(torch, run, tmp))
+    if kernels:
+        print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2631,8 +2859,8 @@ def main() -> int:
         write_fqb(lane, reads, bc_ids, N_CODES)
         print(f"lane: {N_READS} reads x {READ_LEN} bp, {N_CODES} barcodes "
               f"(built in {time.monotonic() - t0:.1f} s)")
-        eng, text, launches, n_batches = phase_main(torch, MK, ES, run,
-                                                     lane)
+        eng, text, launches, n_batches, uf_launches = phase_main(
+            torch, MK, ES, run, lane)
         phase_c_ref(torch, st, run, eng, text, reads, bc_ids, tmp)
         phase_cuda_vs_cpu(run, tmp)
         wide_launches = phase_cuda_vs_cpu(run, tmp, WIDE_CLI_W, MK)
@@ -2674,6 +2902,8 @@ def main() -> int:
         elapsed("phase 25")
         crib20x_launches = phase_crib_scale(torch, MK, ES, run, tmp)
         elapsed("phase 26")
+        union_find = phase_propagate(torch, run, tmp, uf_launches)
+        elapsed("phase 27")
 
     kernels = [kernel_entry(
         "seqhash_sketch", launches, max(max_err, fuzz_err), *main_times,
@@ -2703,6 +2933,7 @@ def main() -> int:
     kernels.append(kernel_entry(
         "seqhash_sketch_kmer_crib_lane20x", crib20x_launches, crib[0],
         *crib[1:], (crib_rows, 1 << 15, (1 << 15) - K + 1, K, "kmer")))
+    kernels.append(union_find)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

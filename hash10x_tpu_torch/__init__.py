@@ -4,8 +4,9 @@ The same sketch-and-cluster engine for 10x linked reads (seqhash
 sketching, the k-mer x barcode count table, the count band, the incidence,
 friend, capped-friend and pair clustering, split, report and the crib truth
 evaluation), written as eager torch code on an explicit device, with the
-sketch as a hand-written CUDA kernel (``csrc/minimizer.cu``).  It never imports JAX; the JAX package is the
-reference the tests hold it against.
+sketch and friend clustering's label propagation as hand-written CUDA
+kernels (``csrc/minimizer.cu``, ``csrc/union_find.cu``).  It never imports
+JAX; the JAX package is the reference the tests hold it against.
 
 Key convention: canonical hashes are below 2^(2k) <= 2^62, so keys are int64
 tensors with ``INT64_MAX`` as the pad (torch's uint64 lacks ``>>``, ``<`` and

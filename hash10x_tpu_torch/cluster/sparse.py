@@ -18,27 +18,34 @@ proportional to the pair set, never n_codes^2:
 4. **Edges.**  A second sweep links each forward-CSR position p = (c1, h)
    to friend node f = rank of (c1, c2) for every friend c2 that also holds h
    (and the mirror edge for (c2, h)).
-5. **Min-label propagation** over the bipartite (position, friend) graph
-   with pointer jumping; labels are global forward positions, so the fixed
-   point is each component's minimum position.  Components never cross
-   barcodes.  The barcode's code offset turns it into the local index, and
-   a dense rank per barcode gives the canonical first-appearance numbering
-   of ``hash10x_tpu/oracle/cluster_ref.cluster_barcode_friend``.
+5. **Labels**: each position's connected-component minimum position in
+   the bipartite (position, friend) graph.  On CUDA one union-find sweep
+   over the edges computes it (``kernels/union_find.py``); on the CPU,
+   rounds of min-label propagation with pointer jumping reach the same
+   fixpoint.  Labels are global forward positions, and components never
+   cross barcodes.  The barcode's code offset turns a label into the local
+   index, and a dense rank per barcode gives the canonical
+   first-appearance numbering of
+   ``hash10x_tpu/oracle/cluster_ref.cluster_barcode_friend``.
 
-On the GPU plain gathers and ``scatter_reduce(amin)`` are the natural form;
-the JAX package's sort-only joins were TPU workarounds.
+On the GPU plain gathers and sorts serve steps 1-4; the JAX package's
+sort-only joins were TPU workarounds.
 
 Spans of the current timer (``utils/timing.py``; the engine's while it
 clusters): ``cluster.cooccur`` (steps 1-2) with a ``cluster.cooccur.reduce``
 per reduction, ``cluster.friends`` (3), ``cluster.edges`` (4) and a
-``cluster.round`` per propagation round (5).  Every device sort adds its
-elements to the counter ``sorted_keys``.
+``cluster.round`` per sweep over the edges (5: the kernel's one, or each
+round).  Every device sort adds its elements to the counter
+``sorted_keys``.  The kernel adds its edges to the counter
+``cluster.uf_edges`` and its links to ``cluster.uf_hooks`` (summed on the
+device); the CPU's rounds add 0 to both.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..kernels import union_find
 from ..table.incidence import Incidence
 from ..table.sorted_table import segment_sum_sorted
 from ..utils import timing
@@ -56,8 +63,8 @@ _BIG = (1 << 62)
 
 # host figures of the last clustering, read by callers that report them:
 # co-occurrence keys ("cooccur_keys"), friend keys in both orders
-# ("friend_keys"), edges ("edges"), their blocks ("edge_blocks") and
-# propagation rounds ("rounds")
+# ("friend_keys"), edges ("edges"), their blocks in a round
+# ("edge_blocks", CPU) and sweeps over the edges ("rounds": 1 on CUDA)
 STATS: dict = {}
 
 
@@ -182,13 +189,35 @@ def _edges(sj: _ShiftJoin, inc: Incidence, fkeys: torch.Tensor):
 
 def propagate_labels(p_e: torch.Tensor, f_e: torch.Tensor, n_p: int, n_f: int,
                      edge_block: int = _EDGE_BLOCK) -> torch.Tensor:
-    """Fixpoint of min-label propagation over position <-> friend edges,
-    scattered in blocks of ``edge_block`` edges; returns each position's
-    component minimum position (one host sync per round)."""
-    dev = p_e.device
-    lab = torch.arange(n_p, device=dev)
+    """Each position's component minimum position over the position <->
+    friend edges: the fixpoint of min-label propagation.
+
+    CUDA tensors take one union-find sweep over the edges in the kernel of
+    ``kernels/union_find.py`` (no host sync).  CPU tensors take rounds of
+    ``scatter_reduce(amin)`` in blocks of ``edge_block`` edges and pointer
+    jumping, until no label moves (one host sync per round).  Both give
+    the same labels."""
     E = p_e.shape[0]
-    STATS["edges"], STATS["edge_blocks"] = E, -(-E // edge_block)
+    STATS["edges"] = E
+    if p_e.device.type == "cuda":
+        STATS["rounds"] = 1
+        with timing.span("cluster.round", device=True):
+            lab, hooks = union_find.components(p_e, f_e, n_p, n_f)
+        timing.add("cluster.uf_edges", E)
+        timing.add_device("cluster.uf_hooks", hooks)
+        return lab
+    if p_e.device.type != "cpu":
+        raise ValueError(f"propagate_labels: unsupported device {p_e.device}")
+    timing.add("cluster.uf_edges", 0)
+    timing.add("cluster.uf_hooks", 0)
+    return _rounds(p_e, f_e, n_p, n_f, edge_block)
+
+
+def _rounds(p_e, f_e, n_p: int, n_f: int, edge_block: int):
+    """The plain version of :func:`propagate_labels`: rounds until no label
+    moves, on the edges' device."""
+    lab = torch.arange(n_p, device=p_e.device)
+    STATS["edge_blocks"] = -(-p_e.shape[0] // edge_block)
     STATS["rounds"] = 0
     while True:
         STATS["rounds"] += 1
@@ -200,7 +229,7 @@ def propagate_labels(p_e: torch.Tensor, f_e: torch.Tensor, n_p: int, n_f: int,
 
 
 def _round(p_e, f_e, lab, n_p: int, n_f: int, edge_block: int):
-    """One round of :func:`propagate_labels`: the new labels."""
+    """One round of :func:`_rounds`: the new labels."""
     dev, E = p_e.device, p_e.shape[0]
     f_lab = torch.full((n_f,), _BIG, dtype=torch.int64, device=dev)
     for s in range(0, E, edge_block):

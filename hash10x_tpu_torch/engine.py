@@ -42,11 +42,12 @@ exchanges cross the host).
 
 ``stats`` holds what the engine's timer (``utils/timing.py``) recorded since
 the engine was made or last reset, as flat numbers, none of them read from
-the device but the sharded paths' ``shard.route_keys`` (below): the
-counters ``dispatches`` (multi-batch steps sent to the device in count and
-incidence, sharded or not), ``flushes`` (sort-merges of
-an append buffer into a table during the engine's stages),
-``graph_captures`` (step shapes captured into CUDA graphs), ``sorted_keys``
+the device but ``cluster.uf_hooks`` and the sharded paths'
+``shard.route_keys`` (below): the counters ``dispatches`` (multi-batch
+steps sent to the device in count and incidence, sharded or not),
+``flushes`` (sort-merges of an append buffer into a table during the
+engine's stages), ``graph_captures`` (step shapes captured into CUDA
+graphs), ``sorted_keys``
 (elements put through the main path's device sorts, the lane's barcode
 sort included), ``lane_bytes`` (the bytes of the barcode-sorted lane on the
 device) and ``lane_staged_bytes`` (lane bytes sent through the pinned
@@ -62,7 +63,11 @@ from them); ``step`` (one multi-batch step's
 host dispatch) and its ``step.capture`` (a CUDA graph's warm-up and
 capture); ``table.flush`` (``table/sorted_table.py``); and
 ``cluster.cooccur``, ``cluster.cooccur.reduce``, ``cluster.friends``,
-``cluster.edges`` and ``cluster.round`` (``cluster/sparse.py``).  On CUDA,
+``cluster.edges`` and ``cluster.round`` (``cluster/sparse.py``), with two
+counters held from a friend clustering's propagation on:
+``cluster.uf_edges`` and ``cluster.uf_hooks`` (the edges the union-find
+kernel swept and the links it made, summed on the device and read with
+``stats``; 0 on the CPU's plain rounds).  On CUDA,
 ``table.flush``, ``cluster.cooccur``, ``cluster.edges`` and
 ``cluster.round`` also give ``N.device_s``: the stream's seconds between
 their marks.  The sharded paths (``n_shards > 1``) record the same names

@@ -35,23 +35,18 @@ counts one launch in ``LAUNCHES`` however many CUDA launches it makes.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
 from .. import INT64_MAX
 from ..core import seqhash
 from ..hashspec import HashSpec
+from .nvcc import CSRC, HBM_BYTES_PER_S, NVCC_FLAGS, library
 
 __all__ = ["sketch", "sketch_plain", "sketch_minimizer",
            "sketch_minimizer_compact", "supported", "sketch_bound", "launcher",
            "build", "count_replay", "LAUNCHES", "PLAIN_CALLS", "CAPTURED",
-           "KERNEL_MODES",
+           "KERNEL_MODES", "NVCC_FLAGS",
            "HBM_BYTES_PER_S", "INT32_OPS_PER_S", "OPS_PER_HASH"]
 
 LAUNCHES = 0
@@ -60,7 +55,6 @@ CAPTURED = 0
 
 KERNEL_MODES = {"kmer": 0, "minimizer": 1, "modimizer": 2, "syncmer": 3}
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 # 32-bit integer operations per second: 132 SMs x 64 INT32 lanes x 1.98 GHz
 # (the float32 row's 67 TFLOP/s counts 128 lanes and two per FMA)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -68,23 +62,10 @@ OPS_PER_HASH = 20  # a canonical hash: 2 64-bit multiplies at 4, 2 64-bit
 #                    shifts at 2, the 64-bit compare and select at 4, the
 #                    forward and reverse-complement roll at 4
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "minimizer.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = CSRC / "minimizer.cu"
 
 _lib = None
 _max_tile_w = 0  # widest tile-kernel minimizer window, set by build()
-
-
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the sketch kernel needs the CUDA "
-                       "toolkit (set CUDA_HOME)")
 
 
 def build() -> ctypes.CDLL:
@@ -92,23 +73,7 @@ def build() -> ctypes.CDLL:
     global _lib, _max_tile_w
     if _lib is not None:
         return _lib
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"minimizer_{tag}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                               capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    lib = ctypes.CDLL(str(so))
+    lib = library(SOURCE)
     fn = lib.h10x_sketch
     ptr, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
     fn.argtypes = [ptr, ptr, i32, i32, i32, i32, u64, i32, i32, u64, i32,

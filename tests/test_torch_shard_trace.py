@@ -41,7 +41,8 @@ PARENTS = {
 ONE_CARD = {
     "cluster.cooccur.n": 1, "cluster.cooccur.reduce.n": 1,
     "cluster.edges.n": 1, "cluster.friends.n": 1, "cluster.n": 1,
-    "cluster.round.n": 4, "count.n": 1, "dispatches": 6, "flushes": 6,
+    "cluster.round.n": 4, "cluster.uf_edges": 0, "cluster.uf_hooks": 0,
+    "count.n": 1, "dispatches": 6, "flushes": 6,
     "graph_captures": 0, "incidence.n": 1, "lane.batches.n": 1,
     "lane.copy.n": 1, "lane.n": 1, "lane.order.n": 1, "lane_bytes": 57600,
     "lane_staged_bytes": 0, "report.n": 1, "sorted_keys": 628645,

@@ -65,8 +65,10 @@ def _pass(eng):
 def test_every_key_is_exported():
     stats = _pass(_engine())
     want = set(COUNTERS) | {f"{n}.{k}" for n in PARENTS
-                            for k in ("host_s", "n")}
+                            for k in ("host_s", "n")} | {
+        "cluster.uf_edges", "cluster.uf_hooks"}
     assert set(stats) == want            # no device_s on the CPU
+    assert stats["cluster.uf_edges"] == stats["cluster.uf_hooks"] == 0
     assert all(stats[f"{n}.n"] >= 1 for n in PARENTS)
     assert stats["lane.n"] == 1          # the incidence reuses the lane
     assert stats["cluster.round.n"] >= 2
