@@ -34,12 +34,13 @@ Phases (any failure exits non-zero):
                 time per call (the kernels line's "ms") and the plain
                 version's (not at the full-card shape), against its bound
                 (sketch_bound)
-  4. main     - the 800k-read / 50k-barcode lane of bench.py as an .fqb,
-                through hash10x_tpu_torch.cli.main on CUDA; every batch must go
-                through the kernel (launch counter > 0, plain calls == 0) in
-                multi-batch steps: every step one CUDA graph replay holding
-                one sketch launch (launches = replays + one warm-up launch
-                per captured graph), fewer launches than batches; friend
+  4. main     - the 800k-read / 50k-barcode lane (bench.make_barcodes_lane)
+                as an .fqb, through hash10x_tpu_torch.cli.main on CUDA;
+                every batch must go through the kernel (launch counter > 0,
+                plain calls == 0) in multi-batch steps: every step one
+                CUDA graph replay holding one sketch launch (launches =
+                replays + one warm-up launch per captured graph), fewer
+                launches than batches; friend
                 clustering through the union-find kernel (its launch count,
                 zeroed before the run, >= 1; one sweep; cluster.uf_edges =
                 the edges): that count is the kernels line's union_find
@@ -54,7 +55,7 @@ Phases (any failure exits non-zero):
   7. modes    - the 800k lane through the CLI on CUDA with --syncmer 11 and
                 with --modimizer, each through the report; kernel launches > 0
                 and plain calls == 0 in each run
-  8. counts   - BASELINE config #1 (bench.py's make_lane: 262,144 reads of
+  8. counts   - BASELINE config #1 (bench.make_lane: 262,144 reads of
                 150 bp from a 2 Mb genome, all under barcode 0) through the
                 CLI on CUDA with --countMode occurrences: the table equals
                 native/c_ref run without --barcodes
@@ -106,11 +107,11 @@ Phases (any failure exits non-zero):
                 --writeClusters byte-identical to phase 4's; per setting the
                 steps, replays and launches of a pass, the count and
                 filter+incidence walls (first pass, then three reset()
-                passes in turns) and the device busy share of a traced pass;
-                one replayed step's device and host ms against the same step
-                run eagerly (its kernels back to back on the device), at
-                S = 16 and 1; the sketch at the stacked shape (16 x 4,096
-                reads) against its plain version, timed as in phase 3
+                passes in turns); one replayed step's device and host ms
+                against the same step run eagerly (its kernels back to
+                back on the device), at S = 16 and 1; the sketch at the
+                stacked shape (16 x 4,096 reads) against its plain
+                version, timed as in phase 3
  21. shard steps - the 800k lane through the library API at --shards 4
                 with flush_batches 16, 5 and 1: report, --writeCounts and
                 --writeClusters byte-identical to phase 4's; steps,
@@ -237,8 +238,7 @@ def _batch(rng, B, L, k, w, bad=0.0, ragged=False, homo=2):
 
 def kernel_device_ms(torch, launch, n=20):
     """Device ms per launch of ``launch()`` (CUDA events around launches
-    queued behind a spin kernel): ``utils.timing.kernel_device_ms``, which
-    the bench uses too."""
+    queued behind a spin kernel): ``utils.timing.kernel_device_ms``."""
     from hash10x_tpu_torch.utils.timing import kernel_device_ms as device_ms
     return device_ms(launch, n)
 
@@ -407,19 +407,6 @@ def phase_mode_parity(torch, MK, HashSpec, compact_rows_of):
                     f"C={C}", times, shape)
         out[mode] = (err[mode], *times, shape)
     return out, err["minimizer"]
-
-
-def make_lane():
-    """bench.py's barcodes lane: 800k reads of 150 bp, 50k barcodes, each
-    barcode one 30 kb molecule of a 100 Mb random genome."""
-    rng = np.random.default_rng(11)
-    genome = rng.integers(0, 4, size=100_000_000).astype(np.uint8)
-    mol_starts = rng.integers(0, len(genome) - 30_000, size=N_CODES)
-    bc_ids = np.repeat(np.arange(N_CODES, dtype=np.int32), N_READS // N_CODES)
-    offs = rng.integers(0, 30_000 - READ_LEN, size=N_READS)
-    starts = mol_starts[bc_ids] + offs
-    reads = genome[starts[:, None] + np.arange(READ_LEN)[None, :]]
-    return reads, bc_ids
 
 
 def write_fqb(path, reads, bc_ids, n_codes):
@@ -673,18 +660,10 @@ def phase_modes(torch, MK, run, lane):
     return launches
 
 
-def make_count_lane():
-    """bench.py's make_lane: 262,144 reads of 150 bp from a 2 Mb random
-    genome (seed 7), all under barcode 0 (BASELINE config #1)."""
-    rng = np.random.default_rng(7)
-    genome = rng.integers(0, 4, size=2_000_000).astype(np.uint8)
-    starts = rng.integers(0, len(genome) - READ_LEN, size=1 << 18)
-    return genome[starts[:, None] + np.arange(READ_LEN)[None, :]]
-
-
 def phase_counts(torch, MK, run, tmp):
     """Config #1 occurrence table through the CLI on CUDA == c_ref --dump."""
-    reads = make_count_lane()
+    from hash10x_tpu_torch.bench import make_lane
+    reads = make_lane()
     n = len(reads)
     lane = os.path.join(tmp, "count.fqb")
     write_fqb(lane, reads, np.zeros(n, np.int32), 1)
@@ -793,11 +772,10 @@ def phase_steps(torch, MK, ES, lane, main_text, main_dumps, tmp, C):
     """Phase 20: the 800k lane through the library API at each of
     STEP_SETTINGS (the CLI has no flag for them): report and dumps
     byte-identical to phase 4's; per setting the steps, replays and
-    launches of a pass, the count and filter+incidence walls and the busy
-    share; one replayed step against the same step run eagerly; the sketch
-    at the stacked shape.  Returns the kernels-line tuple of that shape."""
+    launches of a pass and the count and filter+incidence walls; one
+    replayed step against the same step run eagerly; the sketch at the
+    stacked shape.  Returns the kernels-line tuple of that shape."""
     import dataclasses
-    from hash10x_tpu_torch.bench import profiled_pass
     from hash10x_tpu_torch.engine import Engine, EngineConfig
     from hash10x_tpu_torch.hashspec import HashSpec
     from hash10x_tpu_torch.io.fqb import load_fqb
@@ -842,18 +820,11 @@ def phase_steps(torch, MK, ES, lane, main_text, main_dumps, tmp, C):
         for name, _ in STEP_SETTINGS:
             walls[name].append(passes(engines[name]))
     for name, _ in STEP_SETTINGS:
-        eng = engines[name]
-        prof = profiled_pass(torch.device("cuda"),
-                             lambda: (passes(eng), None, None))
         med = {k: float(np.median([w[k] for w in walls[name]]))
                for k in walls[name][0]}
         print(f"steps {name} warm walls (median of 3 [min-max]): " + ", ".join(
             f"{k[:-2]} {med[k]:.4f} [{min(w[k] for w in walls[name]):.4f}-"
-            f"{max(w[k] for w in walls[name]):.4f}] s" for k in med)
-            + f"; traced pass: busy {prof['busy_ms']:.2f} ms, busy share "
-            f"{prof['busy_share']:.4f} of its walls "
-            f"{sum(prof['phase_walls_s'].values()):.4f} s; top device ms "
-            + "; ".join(f"{n} {ms:.2f}" for n, ms in prof["top_device_ms"]))
+            f"{max(w[k] for w in walls[name]):.4f}] s" for k in med))
 
     # one step, replayed and eager, at S = 16 and S = 1
     eng = engines["S=16"]
@@ -2815,6 +2786,7 @@ def main() -> int:
              "CUDA card")
     sys.path.insert(0, ROOT)
     from hash10x_tpu_torch import engine_steps as ES
+    from hash10x_tpu_torch.bench import make_barcodes_lane
     from hash10x_tpu_torch.cli.main import run
     from hash10x_tpu_torch.engine import Engine, EngineConfig
     from hash10x_tpu_torch.hashspec import HashSpec
@@ -2854,7 +2826,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.monotonic()
-        reads, bc_ids = make_lane()
+        reads, bc_ids = make_barcodes_lane()
         lane = os.path.join(tmp, "lane.fqb")
         write_fqb(lane, reads, bc_ids, N_CODES)
         print(f"lane: {N_READS} reads x {READ_LEN} bp, {N_CODES} barcodes "

@@ -9,11 +9,12 @@ table with no re-sort, and a key's canonical global rank is its shard's
 offset plus its local rank.  Incidence pair keys route by their low bits
 instead (``routing="low"``).
 
-One count step per batch (:class:`SortedCountStep`): the process sketches
-its rows of the global batch with one kernel launch, each shard sorts its
-rows' emissions, cuts them into fixed-capacity send lanes (one per
-destination shard), one ``all_to_all`` delivers the lanes, and the owner
-pre-reduces what it received into its table's weighted append buffer.
+One count step over S batches (:class:`SortedCountStep`): the process
+sketches its rows of the S global batches with one kernel launch, each
+shard sorts each batch's emissions, cuts them into fixed-capacity send
+lanes (one per destination shard), one ``all_to_all`` delivers the lanes,
+and the owner pre-reduces what it received, batch by batch, into its
+table's weighted append buffer.
 Lanes keep the JAX package's sizing rule (``lane_cap``): emissions past a
 lane's capacity are counted exactly as drops, and a finished pass with
 drops raises :class:`LaneOverflowError`, which the engine answers by
@@ -43,7 +44,6 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import INT64_MAX
 from ..hashspec import HashSpec, U64MAX
@@ -212,16 +212,14 @@ class SortedCountStep:
     """The sharded count step, the port of the JAX package's
     ``make_sorted_count_step``.
 
-    The engine sends stacked steps (:meth:`stacked`, the JAX package's
-    ``scan_spans`` on one process and ``scan_stacked`` across processes):
-    this process's rows of S global batches in one sketch launch, each
-    (local shard, batch) row routed through lanes of its own batch's size
-    and reduced on its own, every local shard's batches appended at once
-    (:meth:`append`).  ``step(table, codes, lengths, bcs)`` is the same
-    work for one batch (``codes (B_local, L) uint8``, ``B_local =
-    batch_reads / world``; shard ``lo + i`` takes rows ``[i * per, (i + 1)
-    * per)``) with one dedup call per local shard: the plain form the tests
-    hold the stacked step to.
+    A step is stacked (:meth:`stacked`, the JAX package's ``scan_spans``
+    on one process and ``scan_stacked`` across processes): this process's
+    rows of S global batches (``B_local = batch_reads / world`` rows a
+    batch, shard ``lo + i`` taking rows ``[i * per, (i + 1) * per)`` of
+    each) in one sketch launch, each (local shard, batch) row routed
+    through lanes of its own batch's size and reduced on its own, every
+    local shard's batches appended at once (:meth:`append`).  S = 1 is one
+    batch a step.
 
     ``count_mode="barcodes"``: (hash, barcode) pairs route together and are
     pre-reduced at the owner, so a barcode split across shards still counts
@@ -376,63 +374,6 @@ class SortedCountStep:
                 raise ValueError(f"table range_eff {t.range_eff} != step "
                                  f"range_eff {self.range_eff}")
 
-    def __call__(self, t: ShardedSortedTable, codes: torch.Tensor,
-                 lengths: torch.Tensor, bcs: torch.Tensor
-                 ) -> ShardedSortedTable:
-        self.check_table(t)
-        g = self.group
-        nl, n = g.n_local, g.n_shards
-        B_local, L = codes.shape
-        per = B_local // nl
-        batch_reads = per * n
-        h, _, emit, over = minimizer.sketch(
-            self.spec, codes, lengths, mode=self.mode,
-            compact_to=self.compact_to, m=self.modulus,
-            syncmer_s=self.syncmer_s)
-        t.sketch_over += over.sum()
-        R = h.shape[1]
-        flat_h = torch.where(emit, h, INT64_MAX).reshape(nl, per * R)
-        flat_bc = bcs.to(torch.int64)[:, None].expand(B_local, R) \
-            .reshape(nl, per * R)
-        cap = self.lane_cap(per * self.flat_per_read(L - self.spec.k + 1))
-        slots = self.slots_recv(batch_reads, L)
-        uni = n == 1
-        # the exchange (send lanes + all_to_all) as a profiler range, read
-        # by shards_bench.py
-        exchange = record_function("exchange[pair]" if self.pair
-                                   else "exchange[count]")
-        if self.pair:
-            if uni:
-                rh, rb, drop = flat_h, flat_bc, torch.zeros_like(t.drops)
-            else:
-                with exchange:
-                    rh, rb, drop = self._route_range(flat_h, flat_bc, cap)
-            keys = torch.stack([self._pair_keys(i, rh[i], rb[i])
-                                for i in range(nl)])
-            if not uni:
-                with record_function("exchange[pair]"):
-                    keys, drop2 = route_low(g, keys,
-                                            self.lane_cap(keys.shape[1]))
-                drop = drop + drop2
-            for i in range(nl):
-                uh, uw, o = st.dedup_weighted(keys[i], slots)
-                self._append(t, i, uh, uw, drop[i] + o)
-            return t
-        barcodes = self.count_mode == "barcodes"
-        if uni:
-            rh, rb, drop = flat_h, flat_bc, torch.zeros_like(t.drops)
-        else:
-            with exchange:
-                rh, rb, drop = self._route_range(
-                    flat_h, flat_bc if barcodes else None, cap)
-        for i in range(nl):
-            if barcodes:
-                uh, uw, o = st.dedup_pairs_weighted(rh[i], rb[i], slots)
-            else:
-                uh, uw, o = st.dedup_weighted(rh[i], slots)
-            self._append(t, i, uh, uw, drop[i] + o)
-        return t
-
     def stacked(self, codes: torch.Tensor, lengths: torch.Tensor,
                 bcs: torch.Tensor, S: int):
         """The step over S global batches at once: ``codes (S * B_local,
@@ -466,17 +407,14 @@ class SortedCountStep:
         if n == 1:
             rh, rb, drop = flat_h, flat_bc, flat_h.new_zeros(rows)
         else:
-            with record_function("exchange[pair]" if self.pair
-                                 else "exchange[count]"):
-                rh, rb, drop = self._route_range(flat_h, flat_bc, cap, S)
+            rh, rb, drop = self._route_range(flat_h, flat_bc, cap, S)
         if self.pair:
             rh, rb = rh.reshape(nl, -1), rb.reshape(nl, -1)
             keys = torch.stack([self._pair_keys(i, rh[i], rb[i])
                                 for i in range(nl)]).reshape(rows, -1)
             if n > 1:
-                with record_function("exchange[pair]"):
-                    keys, drop2 = route_low(g, keys,
-                                            self.lane_cap(keys.shape[1]), S)
+                keys, drop2 = route_low(g, keys, self.lane_cap(keys.shape[1]),
+                                        S)
                 drop = drop + drop2
             uh, uw, o = st.dedup_weighted_segmented(keys, slots, self.key_bits)
         elif with_bc:
@@ -521,12 +459,6 @@ class SortedCountStep:
         found = found & (rb >= 0)
         rank = int(self.ret_off[self.group.lo + i]) + idx
         return torch.where(found, rb * max(self.n_kmers, 1) + rank, INT64_MAX)
-
-    @staticmethod
-    def _append(t, i, keys, wts, drops):
-        t.drops[i] += drops
-        t.rows[i] = st.append_pairs(st.grow_buf(t.rows[i], keys.shape[0]),
-                                    keys, wts)
 
     def finish(self, t: ShardedSortedTable) -> ShardedSortedTable:
         return t.flush()

@@ -20,7 +20,7 @@ while a CUDA graph is being captured launches nothing: it counts in
 ``LAUNCHES`` (``count_replay``).
 ``sketch_minimizer``, ``sketch_minimizer_compact`` and ``supported`` keep
 the JAX module's entry points; ``sketch_bound`` is the least time an H100
-could take for one call, the yardstick of ``chip_smoke.py`` and the bench.
+could take for one call, the yardstick of ``chip_smoke.py``.
 
 The kernel is built with ``nvcc`` for ``sm_90a`` into ``_build/`` (ignored by
 git) at first use, keyed by a hash of the source, and loaded with ctypes.

@@ -1,7 +1,7 @@
 """The sharded multi-batch dispatch (``SortedCountStep.stacked``,
 ``engine_steps.sharded_step``: the port of the JAX package's
 ``scan_spans`` / ``scan_stacked``) against the JAX package and against its
-own per-batch step.
+own steps of one batch.
 
 * The port's sharded engine at ``flush_batches`` 1, 3, 16 and 2 and 8
   shards, in both count modes, gives the JAX sharded engine's gathered
@@ -11,9 +11,9 @@ own per-batch step.
   and empty reads, reads without a barcode and one barcode larger than a
   batch.  ``stats["dispatches"]`` is the step count.  The JAX engine runs
   on the 8-device virtual CPU mesh (``tests/conftest.py``).
-* One stacked step over S batches (pad batches included) equals S calls of
-  the per-batch ``SortedCountStep.__call__``: the same flushed table shard
-  by shard and the same drops per shard and sketch overflow, with
+* One stacked step over S batches (pad batches included) equals S stacked
+  steps of one batch each: the same flushed table shard by shard and the
+  same drops per shard and sketch overflow, with
   ``--laneCapacity 8`` (drops in every batch) and auto lanes, for the count
   step in both modes, the incidence pair step, and with keys too wide to
   fold the row index in (the dedup's extra sort, k = 31).
@@ -179,7 +179,7 @@ def test_one_process_local_shard_lane_is_cached(count_mode):
         assert getattr(local.inc, f).tolist() == getattr(whole.inc, f).tolist()
 
 
-# -- one stacked step against S per-batch calls ---------------------------------
+# -- one stacked step against S steps of one batch ----------------------------
 
 def _step_case(n, kind, k, lane_capacity):
     """An engine over the lane (k, n shards, the lane capacity), its device
@@ -223,9 +223,8 @@ def test_stacked_step_equals_per_batch_calls(n, kind, k, lane_capacity):
     cs.append(stacked, out, S, n_real)
     calls = eng._sharded_table_for(cs.group, cs, routing)
     for j in range(n_real):
-        codes, ln, bc = ES._gather(lane, torch.from_numpy(om[:, j:j + 1]),
-                                   BATCH, read_len)
-        calls = cs(calls, codes, ln, bc)
+        cs.append(calls, ES.sharded_step(cs, lane, torch.from_numpy(
+            om[:, j:j + 1]), BATCH, read_len), 1, 1)
     stacked.flush()
     calls.flush()
     assert stacked.drops.tolist() == calls.drops.tolist()
@@ -243,7 +242,7 @@ def test_stacked_step_equals_per_batch_calls(n, kind, k, lane_capacity):
 
 def test_stacked_overflow_is_counted_per_shard():
     """Distinct keys past a batch's slots count as drops of the shard that
-    received them, as the per-batch call counts them."""
+    received them, as a step of that one batch counts them."""
     eng, lane, spans, cs = _step_case(2, "occurrences", 21, 0)
     cs.slots_recv = lambda batch_reads, read_len: 64
     om = np.array([[spans[3][0], spans[4][0]],
@@ -253,8 +252,8 @@ def test_stacked_overflow_is_counted_per_shard():
                                        eng._read_len), 2, 2)
     calls = eng._sharded_table_for(cs.group, cs)
     for j in range(2):
-        calls = cs(calls, *ES._gather(lane, torch.from_numpy(om[:, j:j + 1]),
-                                      BATCH, eng._read_len))
+        cs.append(calls, ES.sharded_step(cs, lane, torch.from_numpy(
+            om[:, j:j + 1]), BATCH, eng._read_len), 1, 1)
     assert (stacked.drops > 0).all()
     assert stacked.drops.tolist() == calls.drops.tolist()
 

@@ -1,11 +1,12 @@
 """The port's sharded count table (``dist/sharded_sorted.py``,
 ``dist/group.py``) against the JAX package's
 (``hash10x_tpu/dist/sharded_sorted.py``) on the 8-device virtual CPU mesh:
-the same batches through both count steps give
-equal splitters, equal shards (compared through ``convert``), equal drop
-counts, and a gathered table equal to the single-shard port's.  Snapshots
-move between the packages and across shard counts.  Every comparison is
-exact (tolerance: none)."""
+the same batches through both count steps (the JAX package's per-batch
+step; the port's stacked step at one batch a step and at every batch in
+one step) give equal splitters, equal shards (compared through
+``convert``), equal drop counts, and a gathered table equal to the
+single-shard port's.  Snapshots move between the packages and across shard
+counts.  Every comparison is exact (tolerance: none)."""
 
 import numpy as np
 import pytest
@@ -47,15 +48,27 @@ def sim_lane():
     return c, ln, b
 
 
-def port_run(spec, n, batches, **kw):
+def port_run(spec, n, batches, depth=1, **kw):
+    """The batches through stacked steps of ``depth`` batches each (0: all
+    of them in one step), each batch's lanes and slots sized as one
+    batch's."""
     g = ShardGroup(n, "cpu")
     step = DS.SortedCountStep(spec, g, **kw)
     t = DS.ShardedSortedTable(g, 1 << 12, 1 << 16, spec=spec,
                               routing=step.routing)
-    for c, ln, b in batches:
-        t = step(t, torch.from_numpy(c), torch.from_numpy(ln),
-                 torch.from_numpy(b.astype(np.int64)))
+    depth = depth or len(batches)
+    for a in range(0, len(batches), depth):
+        part = batches[a:a + depth]
+        c, ln, b = (np.concatenate(x) for x in zip(*part))
+        out = step.stacked(torch.from_numpy(c), torch.from_numpy(ln),
+                           torch.from_numpy(b.astype(np.int64)), len(part))
+        step.append(t, out, len(part), len(part))
     return step.finish(t)
+
+
+# one batch a step, or every batch in one step
+DEPTHS = pytest.mark.parametrize("depth", [1, 0],
+                                 ids=["one_batch_a_step", "one_step"])
 
 
 def jax_run(spec, n, batches, **kw):
@@ -88,13 +101,14 @@ def test_splitters_equal_jax(n, mode, w):
         JDS.code_range_bounds(1000, n).tolist()
 
 
+@DEPTHS
 @pytest.mark.parametrize("n", [1, 2, 8])
-def test_sharded_sorted_equals_jax_shard_by_shard(sim_lane, n):
+def test_sharded_sorted_equals_jax_shard_by_shard(sim_lane, n, depth):
     """Mirror of test_dist.py::test_sharded_sorted_equals_single_device:
     shard s of the port holds exactly shard s of the JAX table."""
     spec, jspec = HashSpec(k=21, w=7, seed=17), JHashSpec(k=21, w=7, seed=17)
     batches = halves(sim_lane)
-    t = port_run(spec, n, batches)
+    t = port_run(spec, n, batches, depth)
     jt = jax_run(jspec, n, batches)
     assert DS.host_sum(t.group, t.drops) == 0
     ph, pc = convert.sharded_table_to_numpy(t)
@@ -106,7 +120,7 @@ def test_sharded_sorted_equals_jax_shard_by_shard(sim_lane, n):
         assert pc[s][real].tolist() == jc[s][keep].tolist()
     # gathered == the single-shard port's table == the JAX gather
     gh, gc = DS.gather_sorted_compact(t)
-    one = port_run(spec, 1, batches)
+    one = port_run(spec, 1, batches, depth)
     oh, oc = DS.gather_sorted_compact(one)
     assert gh.tolist() == oh.tolist() and gc.tolist() == oc.tolist()
     jgh, jgc = JDS.gather_sorted_compact(jt)
@@ -116,14 +130,15 @@ def test_sharded_sorted_equals_jax_shard_by_shard(sim_lane, n):
     assert (DS.sorted_histogram(t, 64) == JDS.sorted_histogram(jt, 64)).all()
 
 
+@DEPTHS
 @pytest.mark.parametrize("n,count_mode", [
     (2, "occurrences"), (8, "occurrences"), (8, "barcodes")])
-def test_multi_batch_accumulation_equals_jax(sim_lane, n, count_mode):
+def test_multi_batch_accumulation_equals_jax(sim_lane, n, count_mode, depth):
     """Mirror of test_dist.py::test_scan_stacked_equals_per_batch as a
     multi-batch accumulation: eight 256-row batches through each step."""
     spec, jspec = HashSpec(k=21, w=7, seed=17), JHashSpec(k=21, w=7, seed=17)
     batches = halves(sim_lane, 8)
-    t = port_run(spec, n, batches, count_mode=count_mode)
+    t = port_run(spec, n, batches, depth, count_mode=count_mode)
     jt = jax_run(jspec, n, batches, count_mode=count_mode)
     gh, gc = DS.gather_sorted_compact(t)
     jgh, jgc = JDS.gather_sorted_compact(jt)
@@ -131,18 +146,19 @@ def test_multi_batch_accumulation_equals_jax(sim_lane, n, count_mode):
     assert gc.tolist() == jgc.tolist()
 
 
-def test_lane_overflow_drops_equal_jax(sim_lane):
+@DEPTHS
+def test_lane_overflow_drops_equal_jax(sim_lane, depth):
     """Eight-slot lanes drop emissions: the port counts exactly the JAX
     package's drops, and delivered plus dropped mass is the whole mass."""
     spec, jspec = HashSpec(k=21, w=7, seed=17), JHashSpec(k=21, w=7, seed=17)
     batches = halves(sim_lane)
-    t = port_run(spec, 8, batches, lane_capacity=8)
+    t = port_run(spec, 8, batches, depth, lane_capacity=8)
     jt = jax_run(jspec, 8, batches, lane_capacity=8)
     drops = DS.host_sum(t.group, t.drops)
     assert drops > 0
     assert drops == int(np.asarray(jt.route_drops).sum())
     _, gc = DS.gather_sorted_compact(t)
-    _, full = DS.gather_sorted_compact(port_run(spec, 8, batches))
+    _, full = DS.gather_sorted_compact(port_run(spec, 8, batches, depth))
     assert int(gc.sum()) + drops == int(full.sum())
 
 
