@@ -5,9 +5,10 @@ occurrence-count and checkpoint paths at full lane scale, and byte-level
 checks against the C stand-in and the CPU.
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
-(``python3 chip_smoke.py --only 23,24,25,26,27`` builds the kernel and
-runs only the phases named; its last line is the same JSON result, with a
-kernels line only for phase 27.)
+(``python3 chip_smoke.py --only 15,16,17,18,21,23,24,25,26,27`` builds
+the kernel and runs only the phases named, any of 15-18 and 21 after
+phase 4, whose outputs they are held to; its last line is the same JSON
+result, with a kernels line only for phase 27.)
 
 Phases (any failure exits non-zero):
   1. device   - the card's name and power limit (nvidia-smi) and torch's name
@@ -174,8 +175,11 @@ Phases (any failure exits non-zero):
                 friend nodes, edges in random order) of 1,922,162,924 edges
                 (the chr20 slice's: ~87M positions, ~30M friend nodes,
                 ~0.47 GB of int32 parents, beyond L2) and of 2e8 edges
-                (parents in L2), each at int32 and int64 parents, and the
-                edges of the 20k ragged lane's --codeClusters run on CUDA
+                (parents in L2), each at int32 and int64 parents and in
+                one call over the edges cut as the shards4 cell holds them
+                (4 shards, blocks of 2^25 edges: ~60 blocks at the slice's
+                size), and the edges of the 20k ragged lane's
+                --codeClusters run on CUDA
                 (whose labels also equal the CPU run's): labels
                 byte-identical, one launch and cluster.uf_edges = the edges;
                 the kernel's device ms, the plain rounds' ms and the bound
@@ -1604,21 +1608,25 @@ def phase_shards(torch, MK, ES, run, lane, tmp, main_text, main_dumps,
     """Phase 15: the 800k lane with --shards 4 and --shards 2 through the
     CLI on CUDA: stdout and both dumps byte-identical to phase 4's; every
     step of both passes one CUDA graph replay holding one sketch launch,
-    fewer launches than one per batch and pass."""
+    fewer launches than one per batch and pass; the union-find kernel's
+    launches and ``cluster.uf_edges`` are printed."""
+    from hash10x_tpu_torch.kernels import union_find as UF
     for n in (4, 2):
         dumps = [os.path.join(tmp, f"shards{n}.{x}")
                  for x in ("counts", "clusters")]
         argv = lane_argv(lane, "--shards", str(n)) + [
             "--writeCounts", dumps[0], "--writeClusters", dumps[1]]
-        ES.REPLAYS = 0
+        ES.REPLAYS = UF.LAUNCHES = 0
         out, err, eng, launches, wall = run_counted(torch, MK, run, argv)
         steps, replays, graphs = check_replays(f"--shards {n}", eng, ES,
                                                launches, 2 * n_batches)
+        uf_edges = eng.stats.get("cluster.uf_edges")
         del eng
         print(f"shards {n}: {steps} steps over {n_batches} batches per pass "
               f"(count and incidence), {replays} CUDA graph replays of "
               f"{graphs} captured graphs, kernel launches {launches} (one "
-              f"per batch and pass: {2 * n_batches})")
+              f"per batch and pass: {2 * n_batches}); union-find launches "
+              f"{UF.LAUNCHES}, cluster.uf_edges {uf_edges}")
         if masked(out) != masked(main_text):
             fail(f"--shards {n} stdout != phase 4's")
         for a, b in zip(dumps, main_dumps):
@@ -2586,6 +2594,8 @@ UF_BLOCK_F = 256         # friend nodes a barcode holds (the slice: 30.9M / 120k
 UF_MOLECULES = 3         # components a barcode holds (the slice: one)
 UF_EDGES_PER_P = 22      # edges a position (the slice: 1.92G / 88.5M)
 UF_CHUNK = 1 << 27       # edges synthesised at once
+UF_SHARDS = 4            # the shards4 cell's shards, one process
+UF_SHARD_BLOCK = 1 << 25  # edges a block of a shard's (sparse._EDGE_BLOCK)
 
 
 def synth_friend_graph(torch, n_edges, seed, device):
@@ -2627,11 +2637,26 @@ def events_ms(torch, fn, n=3):
     return e0.elapsed_time(e1) / n
 
 
+def shard_blocks(p_e, f_e):
+    """The edges as the sharded clustering holds them in one process:
+    UF_SHARDS contiguous shares, each cut into blocks of UF_SHARD_BLOCK
+    edges (views, so the last block of a share is shorter)."""
+    E = p_e.shape[0]
+    out = []
+    for s in range(UF_SHARDS):
+        a, b = s * E // UF_SHARDS, (s + 1) * E // UF_SHARDS
+        out += [(p_e[i:min(i + UF_SHARD_BLOCK, b)],
+                 f_e[i:min(i + UF_SHARD_BLOCK, b)])
+                for i in range(a, b, UF_SHARD_BLOCK)]
+    return out
+
+
 def uf_graph(torch, SP, UF, n_edges):
     """The union-find kernel against the plain rounds on a synthesised
     graph of ``n_edges`` edges: labels byte-identical at int32 and int64
-    parents, or fail; prints and returns (device ms (int32), plain ms,
-    ``propagate_labels`` ms, bound ms)."""
+    parents, and in one call over the edges in the sharded path's blocks
+    (``shard_blocks``), or fail; prints and returns (device ms (int32),
+    plain ms, ``propagate_labels`` ms, bound ms)."""
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -2640,7 +2665,14 @@ def uf_graph(torch, SP, UF, n_edges):
     gen_s = time.monotonic() - t0
     lab, hooks = UF.components(p_e, f_e, n_p, n_f)
     wide, _ = UF._launch(p_e, f_e, n_p, n_f, wide=True)
+    blocks = shard_blocks(p_e, f_e)
+    blab, bhooks = UF.components_of_blocks(blocks, n_p, n_f)
     torch.cuda.synchronize()
+    if not torch.equal(blab, lab) or int(bhooks) != int(hooks):
+        fail(f"union-find: the call over {len(blocks)} blocks differs from "
+             f"the one-block call on the synthesised graph of {n_edges} "
+             f"edges (links {int(bhooks)} against {int(hooks)})")
+    del blab
     t0 = time.monotonic()
     plain = SP._rounds(p_e, f_e, n_p, n_f, SP._EDGE_BLOCK)
     torch.cuda.synchronize()
@@ -2654,6 +2686,8 @@ def uf_graph(torch, SP, UF, n_edges):
         torch, lambda: UF._launch(p_e, f_e, n_p, n_f, wide=False), n=5)
     wide_ms = kernel_device_ms(
         torch, lambda: UF._launch(p_e, f_e, n_p, n_f, wide=True), n=5)
+    blocks_ms = kernel_device_ms(
+        torch, lambda: UF.components_of_blocks(blocks, n_p, n_f), n=5)
     plain_ms = events_ms(
         torch, lambda: SP._rounds(p_e, f_e, n_p, n_f, SP._EDGE_BLOCK), n=2)
     ms = events_ms(torch, lambda: SP.propagate_labels(p_e, f_e, n_p, n_f))
@@ -2663,13 +2697,16 @@ def uf_graph(torch, SP, UF, n_edges):
           f"{n_p + n_f} nodes ({(n_p + n_f) * 4 / 1e6:.1f} MB of int32 "
           f"parents), {comps} position components; labels byte-identical "
           f"to the plain rounds ({rounds} rounds, {cold_s:.3f} s cold) at "
-          f"int32 and int64 parents; links {int(hooks)}; device ms "
-          f"{device_ms:.3f} (int32), {wide_ms:.3f} (int64); propagate_labels "
+          f"int32 and int64 parents and over {len(blocks)} blocks of up to "
+          f"{UF_SHARD_BLOCK} edges in {UF_SHARDS} shards (labels and links "
+          f"byte-equal to the one-block call); links {int(hooks)}; device ms "
+          f"{device_ms:.3f} (int32), {wide_ms:.3f} (int64), {blocks_ms:.3f} "
+          f"(int32, {len(blocks)} blocks); propagate_labels "
           f"{ms:.3f} ms a call; plain rounds {plain_ms:.3f} ms; bound "
           f"{bound_ms:.3f} ms ({nbytes} bytes), share "
           f"{bound_ms / device_ms:.4f}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
-    del p_e, f_e
+    del p_e, f_e, blocks
     free_device(torch)
     return device_ms, plain_ms, ms, bound_ms
 
@@ -2757,9 +2794,32 @@ def phase_propagate(torch, run, tmp, main_launches=None):
 
 
 def run_only(torch, MK, ES, run, only):
-    """``--only 23,24,25,26,27``: after the build, only the phases named."""
+    """``--only 15,16,17,18,21,23,24,25,26,27``: after the build, only the
+    phases named (15-18 and 21 after phase 4)."""
+    from hash10x_tpu_torch.bench import make_barcodes_lane
     kernels = []
     with tempfile.TemporaryDirectory() as tmp:
+        if only & {15, 16, 17, 18, 21}:
+            reads, bc_ids = make_barcodes_lane()
+            lane = os.path.join(tmp, "lane.fqb")
+            write_fqb(lane, reads, bc_ids, N_CODES)
+            eng, text, _, n_batches, _ = phase_main(torch, MK, ES, run, lane)
+            main_dumps = write_dumps(eng, tmp, "main")
+            del eng
+            if 15 in only:
+                phase_shards(torch, MK, ES, run, lane, tmp, text, main_dumps,
+                             n_batches)
+            if 16 in only:
+                phase_lanes(torch, MK, run, lane, tmp, text, main_dumps)
+            if 17 in only:
+                phase_hosts(lane, tmp, reads, bc_ids, text, n_batches)
+            if 18 in only:
+                ragged_lane(tmp)
+                phase_cuda_vs_cpu_shards(run, tmp)
+            if 21 in only:
+                phase_shard_steps(torch, MK, ES, lane, text, main_dumps, tmp,
+                                  n_batches)
+            del reads, bc_ids
         lane = ref = None
         if 23 in only:
             lane, ref, _ = phase_scale(torch, MK, ES, run, tmp)

@@ -22,11 +22,16 @@ The phases of ``cluster/sparse.py`` spread over a shard group:
    ``_EDGE_BLOCK`` edges (each edge arises once, so nothing dedups or
    sorts them, and no table holds them).
 4. **Propagation.**  Labels (global forward positions) are held whole by
-   every process; each round every shard takes the minimum over its own
-   edges, block by block, and ``all_reduce(min)`` merges the shards (the
-   JAX package's ``pmin``), then pointer jumping; ``all_reduce(max)`` of a
-   changed flag ends the loop, one host read per round.
-   ``label_block_pairs`` runs the fixpoint over barcode-aligned blocks of
+   every process.  With one process on CUDA every shard's edge blocks are
+   on this card, in one node space: one union-find sweep hooks every
+   block into one parent array (``kernels/union_find.py``, no host sync),
+   and each position's root is its component's minimum position.  On the
+   CPU, and over several processes (gloo), where one process cannot see
+   another's edges, labels propagate in rounds: every shard takes the
+   minimum over its own edges, block by block, and ``all_reduce(min)``
+   merges the shards (the JAX package's ``pmin``), then pointer jumping;
+   ``all_reduce(max)`` of a changed flag ends the loop, one host read per
+   round.  ``label_block_pairs`` propagates over barcode-aligned blocks of
    positions instead, for lanes whose whole label vector should not be
    held.
 
@@ -37,7 +42,9 @@ Spans of the current timer (``utils/timing.py``; the engine's while it
 clusters), the one-card path's names for the same phases:
 ``cluster.cooccur`` (1, with the stream clock), ``cluster.friends`` (2),
 ``cluster.edges`` (3, stream clock) and a ``cluster.round`` per
-propagation round (4, stream clock).  The sweep's routing is the
+propagation sweep or round (4, stream clock), with the counters
+``cluster.uf_edges`` and ``cluster.uf_hooks`` (the edges the union-find
+sweeps took and their links; 0 on the rounds).  The sweep's routing is the
 ``shard.route`` span and counters of ``dist/sharded_sorted.py``; a sweep
 run again with doubled lanes adds 1 to ``shard.sweep_retries``.
 """
@@ -53,6 +60,7 @@ from .. import INT64_MAX
 from ..dist import sharded_sorted as SS
 from ..dist.group import ShardGroup
 from ..dist.sharded_inc import ShardedIncidence, canon_labels_sharded
+from ..kernels import union_find
 from ..table import sorted_table as st
 from ..table.incidence import Incidence
 from ..utils import timing
@@ -66,7 +74,8 @@ _CHUNK = 1 << 20
 # host figures of the last clustering, read by callers that report them:
 # friend keys in both orders ("friend_keys"), this process's edges
 # ("edges") and their blocks ("edge_blocks"), label blocks
-# ("label_blocks") and propagation rounds summed over them ("rounds")
+# ("label_blocks") and propagation sweeps or rounds summed over them
+# ("rounds")
 STATS: dict = {}
 
 
@@ -359,9 +368,14 @@ def _joined(parts):
 def _propagate(group: ShardGroup, edges, n_p: int, n_f: int
                ) -> torch.Tensor:
     """Min-label fixpoint over the position <-> friend edges of every shard
-    (``edges[i]``: local shard i's (positions, friend ranks) blocks);
-    labels start as positions, so each position ends at its component's
-    minimum."""
+    (``edges[i]``: local shard i's (positions, friend ranks) blocks): each
+    position's component minimum.  One process on CUDA holds every
+    shard's blocks and takes one union-find sweep over them; the CPU and
+    several processes take rounds, labels starting as positions."""
+    if group.device.type == "cuda" and group.world == 1:
+        return _sweep(group, edges, n_p, n_f)
+    timing.add("cluster.uf_edges", 0)
+    timing.add("cluster.uf_hooks", 0)
     dev = group.device
     nl = len(edges)
     lab = torch.arange(n_p, device=dev)
@@ -391,6 +405,21 @@ def _propagate(group: ShardGroup, edges, n_p: int, n_f: int
         if not int(changed[0]):
             return new
         lab = new
+
+
+def _sweep(group: ShardGroup, edges, n_p: int, n_f: int) -> torch.Tensor:
+    """One union-find kernel call over every local shard's edge blocks."""
+    blocks = [b for shard in edges for b in shard]
+    n_edges = sum(p.shape[0] for p, _ in blocks)
+    if not blocks:
+        none = torch.zeros(0, dtype=torch.int64, device=group.device)
+        blocks = [(none, none)]
+    STATS["rounds"] = STATS.get("rounds", 0) + 1
+    with timing.span("cluster.round", device=True):
+        lab, hooks = union_find.components_of_blocks(blocks, n_p, n_f)
+    timing.add("cluster.uf_edges", n_edges)
+    timing.add_device("cluster.uf_hooks", hooks)
+    return lab
 
 
 def _label_blocks(code_offsets: np.ndarray, n_pairs: int, target: int):

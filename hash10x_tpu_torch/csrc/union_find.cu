@@ -16,10 +16,13 @@
 // starts as the identity and keeps parent[x] <= x throughout:
 //   init      parent[x] = x; the link counter is zeroed.
 //   hook      a grid-stride sweep over the edges (p_e, f_e int64, as
-//             cluster/sparse.py _edges gives them), two edges a thread with
-//             16-byte loads where both vectors are 16-byte aligned.  Both
-//             ends' parents are loaded together; equal parents mean one
-//             component and end the edge.  Otherwise each end climbs to its
+//             cluster/sparse.py _edges gives them), one launch per block of
+//             edges (the sharded path's per-shard blocks, all hooked into
+//             the one parent array: the result does not depend on order),
+//             two edges a thread with 16-byte loads where both of the
+//             block's vectors are 16-byte aligned.  Both ends' parents are
+//             loaded together; equal parents mean one component and end
+//             the edge.  Otherwise each end climbs to its
 //             root with path halving (plain stores: a store only ever points
 //             a non-root at one of its ancestors, so a store that loses a
 //             race still leaves a valid path), and the larger root is hooked
@@ -29,7 +32,7 @@
 //             smallest node of its tree, and positions come before friend
 //             nodes, so at the end each root is its component's smallest
 //             position, whatever order the atomics land in.  Successful
-//             hooks are summed per block and added to one counter.
+//             hooks are summed per thread block and added to one counter.
 //   finalise  labels[p] = root of p as int64, for p < n_p.
 // An edge whose position or friend rank is out of range stops the kernel
 // with a trap, as torch's own index kernels assert.
@@ -182,18 +185,23 @@ int grid_for(K kernel, long long n, int* blocks) {
 }
 
 template <typename T>
-int run(const long long* pe, const long long* fe, long long E, long long n_p,
-        long long n_f, T* parent, long long* labels,
-        unsigned long long* hooks, cudaStream_t st) {
+int run(const long long* const* pe, const long long* const* fe,
+        const long long* E, int n_blocks, long long n_p, long long n_f,
+        T* parent, long long* labels, unsigned long long* hooks,
+        cudaStream_t st) {
   int blocks = 0, rc = grid_for(init_parents<T>, n_p + n_f, &blocks);
   if (rc != 0) return rc;
   init_parents<T><<<blocks, kThreads, 0, st>>>(parent, n_p + n_f, hooks);
   if ((rc = (int)cudaGetLastError()) != 0) return rc;
-  if (E > 0) {
-    const bool vec = ((uintptr_t)pe % 16 == 0) && ((uintptr_t)fe % 16 == 0);
+  for (int b = 0; b < n_blocks; ++b) {
+    if (E[b] <= 0) continue;
+    const bool vec =
+        ((uintptr_t)pe[b] % 16 == 0) && ((uintptr_t)fe[b] % 16 == 0);
     auto hook = vec ? hook_edges<T, true> : hook_edges<T, false>;
-    if ((rc = grid_for(hook, vec ? E / 2 + 1 : E, &blocks)) != 0) return rc;
-    hook<<<blocks, kThreads, 0, st>>>(pe, fe, E, n_p, n_f, parent, hooks);
+    if ((rc = grid_for(hook, vec ? E[b] / 2 + 1 : E[b], &blocks)) != 0)
+      return rc;
+    hook<<<blocks, kThreads, 0, st>>>(pe[b], fe[b], E[b], n_p, n_f, parent,
+                                      hooks);
     if ((rc = (int)cudaGetLastError()) != 0) return rc;
   }
   if ((rc = grid_for(root_labels<T>, n_p, &blocks)) != 0) return rc;
@@ -204,20 +212,27 @@ int run(const long long* pe, const long long* fe, long long E, long long n_p,
 }  // namespace
 
 // Labels of the n_p positions (each its component's smallest position) from
-// the E edges (p_e[i], f_e[i]).  Launches init, hook and finalise on
-// `stream` and returns the first cudaGetLastError() that is not 0 (0 =
+// the edges of n_blocks blocks, block b holding the E[b] edges
+// (p_e[b][i], f_e[b][i]); the host arrays p_e, f_e and E are read before
+// the call returns.  Launches init once, hook once per block that holds
+// edges (each block takes the 16-byte loads where both its vectors are
+// aligned) and finalise once, all on `stream` with no host sync between
+// them, and returns the first cudaGetLastError() that is not 0 (0 =
 // launched).  parent: n_p + n_f entries of int32 (wide == 0) or int64
-// scratch; labels: n_p int64; hooks: one uint64, the successful links.
-extern "C" int h10x_union_find(const void* p_e, const void* f_e,
-                               long long E, long long n_p, long long n_f,
-                               int wide, void* parent, void* labels,
-                               void* hooks, void* stream) {
+// scratch; labels: n_p int64; hooks: one uint64, the successful links of
+// every block.
+extern "C" int h10x_union_find(const void* const* p_e, const void* const* f_e,
+                               const long long* E, int n_blocks,
+                               long long n_p, long long n_f, int wide,
+                               void* parent, void* labels, void* hooks,
+                               void* stream) {
   if (n_p <= 0) return 0;
-  const long long* pe = (const long long*)p_e;
-  const long long* fe = (const long long*)f_e;
+  const long long* const* pe = (const long long* const*)p_e;
+  const long long* const* fe = (const long long* const*)f_e;
   long long* lab = (long long*)labels;
   unsigned long long* h = (unsigned long long*)hooks;
   cudaStream_t st = (cudaStream_t)stream;
-  return wide ? run(pe, fe, E, n_p, n_f, (long long*)parent, lab, h, st)
-              : run(pe, fe, E, n_p, n_f, (int*)parent, lab, h, st);
+  return wide ? run(pe, fe, E, n_blocks, n_p, n_f, (long long*)parent, lab,
+                    h, st)
+              : run(pe, fe, E, n_blocks, n_p, n_f, (int*)parent, lab, h, st);
 }

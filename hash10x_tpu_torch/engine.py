@@ -67,7 +67,9 @@ capture); ``table.flush`` (``table/sorted_table.py``); and
 counters held from a friend clustering's propagation on:
 ``cluster.uf_edges`` and ``cluster.uf_hooks`` (the edges the union-find
 kernel swept and the links it made, summed on the device and read with
-``stats``; 0 on the CPU's plain rounds).  On CUDA,
+``stats``; from the one-card path and, with one process on CUDA, from the
+sharded path; 0 on the plain rounds, which the CPU and several processes
+run).  On CUDA,
 ``table.flush``, ``cluster.cooccur``, ``cluster.edges`` and
 ``cluster.round`` also give ``N.device_s``: the stream's seconds between
 their marks.  The sharded paths (``n_shards > 1``) record the same names

@@ -12,13 +12,17 @@ bytes an edge streamed once, and random parent sectors) and what the design
 does about it: both ends' parents loaded together, path halving, a CAS hook
 of the larger root under the smaller.
 
-:func:`components` launches the kernel for CUDA tensors and raises on what
-it does not take.  Parents are int32 when the nodes (positions and friend
-ranks) number under 2^31, else int64: the width follows the node count.
-``LAUNCHES`` counts kernel calls (a call is three CUDA launches: init, hook,
-finalise).  The library is built with ``nvcc`` for ``sm_90a`` into
-``_build/`` at first use (``kernels/nvcc.py``), keyed by a hash of the
-source, and loaded with ctypes.
+:func:`components_of_blocks` launches the kernel on a list of edge blocks
+(CUDA tensors; the sharded path's per-shard blocks, hooked into one parent
+array without being joined) and raises on what it does not take;
+:func:`components` is its one-block case.  Parents are int32 when the nodes
+(positions and friend ranks) number under 2^31, else int64: the width
+follows the node count.  ``LAUNCHES`` counts kernel calls (a call is an
+init launch, a hook launch per block that holds edges and a finalise
+launch, with no host sync between them).  The library is built with
+``nvcc`` for ``sm_90a`` into ``_build/`` at first use
+(``kernels/nvcc.py``), keyed by a hash of the source, and loaded with
+ctypes.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ import torch
 
 from .nvcc import CSRC, HBM_BYTES_PER_S, library
 
-__all__ = ["components", "bound", "build", "LAUNCHES", "SOURCE"]
+__all__ = ["components", "components_of_blocks", "bound", "build",
+           "LAUNCHES", "SOURCE"]
 
 LAUNCHES = 0
 
@@ -44,8 +49,9 @@ def build() -> ctypes.CDLL:
     if _lib is None:
         lib = library(SOURCE)
         ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-        lib.h10x_union_find.argtypes = [ptr, ptr, i64, i64, i64,
-                                        ctypes.c_int, ptr, ptr, ptr, ptr]
+        lib.h10x_union_find.argtypes = [
+            ctypes.POINTER(ptr), ctypes.POINTER(ptr), ctypes.POINTER(i64),
+            ctypes.c_int, i64, i64, ctypes.c_int, ptr, ptr, ptr, ptr]
         lib.h10x_union_find.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -60,42 +66,67 @@ def bound(n_edges: int, n_p: int):
 
 def components(p_e: torch.Tensor, f_e: torch.Tensor, n_p: int, n_f: int):
     """Labels of the bipartite graph whose edges join position ``p_e[i]``
-    (in [0, n_p)) and friend rank ``f_e[i]`` (in [0, n_f)): ``(labels,
-    hooks)``, ``labels (n_p,) int64`` each position's smallest connected
-    position, ``hooks (1,) int64`` the links the sweep made (the node count
-    less the component count), on the device, unread.  CUDA int64 edge
-    vectors of one length on one device; launches on the current stream.
-    An edge out of range stops the kernel with a device-side trap."""
-    if p_e.device.type != "cuda":
-        raise ValueError(f"union-find kernel: unsupported device {p_e.device}")
-    if f_e.device != p_e.device:
-        raise ValueError("p_e and f_e must be on one device")
-    if p_e.dtype != torch.int64 or f_e.dtype != torch.int64 \
-            or p_e.dim() != 1 or p_e.shape != f_e.shape:
-        raise ValueError("p_e and f_e must be int64 vectors of one length")
+    (in [0, n_p)) and friend rank ``f_e[i]`` (in [0, n_f)): the one-block
+    case of :func:`components_of_blocks`."""
+    return components_of_blocks([(p_e, f_e)], n_p, n_f)
+
+
+def components_of_blocks(blocks, n_p: int, n_f: int):
+    """Labels of the bipartite graph whose edges are those of every block
+    ``(p_e, f_e)`` of ``blocks``, each joining position ``p_e[i]`` (in [0,
+    n_p)) and friend rank ``f_e[i]`` (in [0, n_f)): ``(labels, hooks)``,
+    ``labels (n_p,) int64`` each position's smallest connected position,
+    ``hooks (1,) int64`` the links the sweep made over all blocks (the node
+    count less the component count), on the device, unread.  One or more
+    blocks of CUDA int64 edge vectors, the two of a block of one length,
+    all on one device; one kernel call on the current stream.  An edge out
+    of range stops the kernel with a device-side trap."""
+    blocks = list(blocks)
+    if not blocks:
+        raise ValueError("union-find kernel: no edge blocks")
+    dev = blocks[0][0].device
+    for p_e, f_e in blocks:
+        if p_e.dtype != torch.int64 or f_e.dtype != torch.int64 \
+                or p_e.dim() != 1 or p_e.shape != f_e.shape:
+            raise ValueError("p_e and f_e must be int64 vectors of one "
+                             "length")
+        if p_e.device != dev or f_e.device != dev:
+            raise ValueError("edge blocks must be on one device")
+    if dev.type != "cuda":
+        raise ValueError(f"union-find kernel: unsupported device {dev}")
     if n_p < 0 or n_f < 0:
         raise ValueError("n_p and n_f must be >= 0")
-    return _launch(p_e.contiguous(), f_e.contiguous(), n_p, n_f,
-                   wide=n_p + n_f >= 1 << 31)
+    return _sweep([(p.contiguous(), f.contiguous()) for p, f in blocks],
+                  n_p, n_f, wide=n_p + n_f >= 1 << 31)
 
 
 def _launch(p_e: torch.Tensor, f_e: torch.Tensor, n_p: int, n_f: int,
             wide: bool):
-    """One kernel call on :func:`components`' checked, contiguous inputs,
-    with int64 parents where ``wide``, else int32."""
+    """One kernel call on one checked, contiguous block, with int64 parents
+    where ``wide``, else int32."""
+    return _sweep([(p_e, f_e)], n_p, n_f, wide)
+
+
+def _sweep(blocks, n_p: int, n_f: int, wide: bool):
+    """One kernel call on :func:`components_of_blocks`' checked, contiguous
+    blocks, with int64 parents where ``wide``, else int32."""
     global LAUNCHES
     lib = build()
-    dev = p_e.device
+    dev = blocks[0][0].device
     parent = torch.empty(n_p + n_f, device=dev,
                          dtype=torch.int64 if wide else torch.int32)
     labels = torch.empty(n_p, dtype=torch.int64, device=dev)
     hooks = torch.empty(1, dtype=torch.int64, device=dev)   # zeroed by init
     if n_p == 0:
         return labels, hooks.zero_()
+    n = len(blocks)
+    p_ptrs = (ctypes.c_void_p * n)(*(p.data_ptr() for p, _ in blocks))
+    f_ptrs = (ctypes.c_void_p * n)(*(f.data_ptr() for _, f in blocks))
+    sizes = (ctypes.c_longlong * n)(*(p.shape[0] for p, _ in blocks))
     with torch.cuda.device(dev):
         rc = lib.h10x_union_find(
-            p_e.data_ptr(), f_e.data_ptr(), p_e.shape[0], n_p, n_f, int(wide),
-            parent.data_ptr(), labels.data_ptr(), hooks.data_ptr(),
+            p_ptrs, f_ptrs, sizes, n, n_p, n_f, int(wide), parent.data_ptr(),
+            labels.data_ptr(), hooks.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"union-find kernel launch failed: CUDA error {rc}")

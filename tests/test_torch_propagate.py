@@ -4,7 +4,9 @@
 no edges, one component over everything, and long chains that take the
 plain rounds many passes.  On a card the same graphs hold the union-find
 kernel (``kernels/union_find.py``) to the plain version, label for label,
-at both parent widths.
+at both parent widths, and the edges cut into blocks (empty, odd-length
+and unaligned ones among them) give the labels and links of one sweep
+over them whole.
 
 This file imports no JAX, so its card tests run on the card with
 ``python -m pytest -q --noconftest -m chip tests/test_torch_propagate.py``.
@@ -143,6 +145,28 @@ def test_the_kernel_takes_cuda_tensors_only():
         SP.propagate_labels(p_e.to("meta"), f_e.to("meta"), n_p, n_f)
 
 
+def _never_built():
+    raise AssertionError("the kernel was built")
+
+
+@pytest.mark.parametrize("fault", ["none", "cpu", "lengths", "dtype",
+                                   "devices"])
+def test_the_block_list_entry_rejects_before_any_build(fault, monkeypatch):
+    monkeypatch.setattr(UF, "build", _never_built)
+    p_e, f_e, n_p, n_f = _tensors("random", 6)
+    a = (p_e[:40], f_e[:40])
+    blocks, match = {
+        "none": ([], "no edge blocks"),
+        "cpu": ([a, (p_e[40:], f_e[40:])], "unsupported device"),
+        "lengths": ([a, (p_e[40:], f_e[41:])], "one length"),
+        "dtype": ([a, (p_e[40:].int(), f_e[40:].int())], "int64"),
+        "devices": ([a, (p_e[40:].to("meta"), f_e[40:].to("meta"))],
+                    "one device"),
+    }[fault]
+    with pytest.raises(ValueError, match=match):
+        UF.components_of_blocks(blocks, n_p, n_f)
+
+
 def test_bound_counts_edges_and_labels():
     nbytes, ms = UF.bound(1_000, 10)
     assert nbytes == 16 * 1_000 + 8 * 10
@@ -195,3 +219,45 @@ def test_propagate_labels_runs_the_kernel_on_cuda():
     assert stats["cluster.uf_edges"] == SP.STATS["edges"] == p_e.shape[0]
     assert stats["cluster.uf_hooks"] == n_p + n_f - n_comp
     assert stats["cluster.round.device_s"] > 0
+
+
+def _blocks(p_e, f_e, seed):
+    """``(p_e, f_e)`` cut into blocks in order: empty ones at both ends and
+    inside, odd lengths, views starting an int64 off 16-byte alignment
+    (the scalar loads), and the longest block copied to such an offset."""
+    E = p_e.shape[0]
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(np.concatenate([[0, 0, min(1, E), min(1, E), E, E],
+                                   rng.integers(0, E + 1, 6)])).tolist()
+    blocks = [(p_e[a:b], f_e[a:b]) for a, b in zip(cuts[:-1], cuts[1:])]
+    i = max(range(len(blocks)), key=lambda j: blocks[j][0].shape[0])
+    if blocks[i][0].shape[0]:
+        blocks[i] = tuple(torch.cat([x[:1], x])[1:] for x in blocks[i])
+    return blocks
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("case", CASES)
+def test_a_block_list_is_one_sweep(case):
+    """One kernel call over the blocks gives the labels of the plain rounds
+    and the labels and links of one sweep over the edges whole."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for seed in range(3):
+        p_e, f_e, n_p, n_f = _tensors(case, seed, "cuda")
+        plain = SP._rounds(p_e, f_e, n_p, n_f, SP._EDGE_BLOCK)
+        _, n_comp = reference(*graph(case, seed))
+        whole, whole_hooks = UF.components(p_e, f_e, n_p, n_f)
+        blocks = _blocks(p_e, f_e, seed)
+        assert torch.equal(torch.cat([p for p, _ in blocks]), p_e)
+        assert any(b[0].shape[0] == 0 for b in blocks)
+        if p_e.shape[0] > 1:
+            assert any(p.shape[0] and p.data_ptr() % 16 for p, _ in blocks)
+            assert any(p.shape[0] % 2 for p, _ in blocks)
+        before = UF.LAUNCHES
+        lab, hooks = UF.components_of_blocks(blocks, n_p, n_f)
+        torch.cuda.synchronize()
+        assert UF.LAUNCHES == before + 1
+        assert torch.equal(lab, plain) and torch.equal(lab, whole), \
+            (case, seed)
+        assert int(hooks) == int(whole_hooks) == n_p + n_f - n_comp

@@ -5,8 +5,12 @@ benchmark's own (``benchmark/lane.py``): seeded, with sequencing errors and
 reads off both strands, ~20 barcodes a k-mer.  One case starts with send
 lanes too narrow for a batch, so the sharded passes overflow and run again
 with doubled lanes; and the sharded clustering's edges, in blocks of any
-size and under label blocks, give the one-card path's labels."""
+size and under label blocks, give the one-card path's labels: on the CPU
+by rounds, which record no union-find edges, and on a card (``-m chip``,
+``python -m pytest -q --noconftest -m chip
+tests/test_torch_shards_reference.py``) by one union-find sweep."""
 
+import dataclasses
 import functools
 import json
 
@@ -21,6 +25,9 @@ from benchmark.run import HERE
 import hash10x_tpu_torch.cluster.sparse_dist as SPD
 from hash10x_tpu_torch.cluster.sparse import cluster_codes_sparse
 from hash10x_tpu_torch.dist.group import ShardGroup
+from hash10x_tpu_torch.kernels import union_find as UF
+from hash10x_tpu_torch.utils import timing
+from hash10x_tpu_torch.utils.timing import StageTimer
 
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
@@ -56,6 +63,7 @@ def _traffic(**engine):
     return t
 
 
+@functools.lru_cache(maxsize=None)
 def _checks(seed, **engine):
     """(the checks' numbers, the pass) of one pass of the shards4 mix."""
     traffic = _traffic(**engine)
@@ -75,6 +83,13 @@ def test_the_pass_equals_the_plain_reference(seed, n_shards):
     assert inc.n_pairs > 15 * p.engine.retained_hashes.shape[0]
     assert inc.n_pairs > 100 * CFG["n_barcodes"]
     assert p.engine.split_origin.shape[0] < 2 * CFG["n_barcodes"]
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_the_cpu_propagates_in_rounds_without_the_kernel(n_shards):
+    stats = _checks(SEEDS[0], n_shards=n_shards)[2].stats
+    assert stats["cluster.uf_edges"] == 0 == stats["cluster.uf_hooks"]
+    assert stats["cluster.round.n"] >= 1
 
 
 def test_lanes_too_narrow_run_again_and_equal_the_reference():
@@ -103,3 +118,33 @@ def test_edge_blocks_give_the_one_card_labels(edge_block, label_blocks):
     if edge_block < 1 << 25:
         assert SPD.STATS["edge_blocks"] > 4
     assert SPD.STATS["edges"] > 0
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("n_shards", [2, 4])
+@pytest.mark.parametrize("label_blocks", [0, 2000])
+def test_one_sweep_on_a_card_gives_the_one_card_labels(n_shards,
+                                                       label_blocks):
+    """One process on CUDA: one union-find call per label block over every
+    shard's edge blocks, no rounds, every edge hooked."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    inc = _inc(SEEDS[1])
+    inc = dataclasses.replace(inc, **{
+        f.name: getattr(inc, f.name).cuda() for f in dataclasses.fields(inc)
+        if torch.is_tensor(getattr(inc, f.name))})
+    want = cluster_codes_sparse(inc, CFG["min_friend_share"])
+    timer = StageTimer(None, device="cuda")
+    before = UF.LAUNCHES
+    with timing.recording(timer):
+        got = SPD.cluster_codes_sparse_dist(
+            inc, ShardGroup(n_shards, "cuda"), CFG["min_friend_share"],
+            flat=True, label_block_pairs=label_blocks, edge_block=5000)
+    assert torch.equal(got, want)
+    stats = timer.stats()
+    sweeps = SPD.STATS.get("label_blocks", 1)
+    assert sweeps > 1 if label_blocks else sweeps == 1
+    assert UF.LAUNCHES - before == SPD.STATS["rounds"] == sweeps \
+        == stats["cluster.round.n"]
+    assert stats["cluster.uf_edges"] == SPD.STATS["edges"] > 0
+    assert SPD.STATS["edge_blocks"] > n_shards
