@@ -32,6 +32,16 @@ is a memory choice only: ``max_batch_bytes`` bounds the per-batch working
 set (2 GiB by default on a device with 80 GB; the JAX package's 256 MiB was
 a TPU choice).
 
+Spans and counters (``utils/timing.py``, on the engine's timer while it
+clusters; none adds a synchronisation): pair mode records, a batch each,
+``cluster.pair.lists`` (``batch_lists``' gather), ``cluster.pair.support``
+(dense ranks, D, D @ D^T and the adjacency) and ``cluster.pair.round``
+(every propagation round of the batch), each with stream seconds on CUDA,
+and the counters ``cluster.pair_rounds`` (rounds run, summed over the
+batches), ``cluster.pair_cells`` (the B * K * K support cells computed) and
+``cluster.pair_real_cells`` (the sum of n_c^2 over the batches' barcodes,
+n_c a barcode's k-mers: the cells that are not padding).
+
 The JAX package takes each batch's friends from a dense (B, n_codes) share
 row and a ``top_k`` over it (``_friends`` here, kept as the reference the
 tests hold ``friends_table`` against): O(n_codes^2) work over the lane,
@@ -46,6 +56,7 @@ import numpy as np
 import torch
 
 from ..table.incidence import Incidence
+from ..utils import timing
 
 __all__ = ["cluster_batch", "shares_batch", "friend_union_batch",
            "friends_table", "cluster_codes"]
@@ -62,16 +73,19 @@ def _size_class(n: int) -> int:
     return c
 
 
-def _propagate(step, valid: torch.Tensor) -> torch.Tensor:
+def _propagate(step, valid: torch.Tensor) -> tuple:
     """Iterate ``lab <- step(lab)`` from each valid row's own index (pads
-    hold K) until nothing changes; one host sync per round."""
+    hold K) until nothing changes; one host sync per round.  Returns the
+    labels and the rounds run."""
     B, K = valid.shape
     lab = torch.where(valid, torch.arange(K, device=valid.device), K)
+    rounds = 1
     while True:
         new = step(lab)
         if torch.equal(new, lab):
-            return lab
+            return lab, rounds
         lab = new
+        rounds += 1
 
 
 def _canonical(labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -119,16 +133,20 @@ def cluster_batch(cl: torch.Tensor, kmer_valid: torch.Tensor,
     per k-mer, -1 padded; ``kmer_valid (B, K)``.  Returns canonical labels
     (B, K) int64, pad rows -1."""
     K = cl.shape[1]
-    s = _support(cl, max_bytes)
-    both = kmer_valid[:, :, None] & kmer_valid[:, None, :]
-    adj = (s - 1.0 >= min_share) & both
-    adj |= torch.eye(K, dtype=torch.bool, device=cl.device)[None] \
-        & kmer_valid[:, :, None]
+    with timing.span("cluster.pair.support", device=True):
+        s = _support(cl, max_bytes)
+        both = kmer_valid[:, :, None] & kmer_valid[:, None, :]
+        adj = (s - 1.0 >= min_share) & both
+        adj |= torch.eye(K, dtype=torch.bool, device=cl.device)[None] \
+            & kmer_valid[:, :, None]
 
     def step(lab):
         nbr = torch.where(adj, lab[:, None, :], K).min(dim=2).values
         return torch.minimum(lab, nbr)
-    return _canonical(_propagate(step, kmer_valid), kmer_valid)
+    with timing.span("cluster.pair.round", device=True):
+        lab, rounds = _propagate(step, kmer_valid)
+    timing.add("cluster.pair_rounds", rounds)
+    return _canonical(lab, kmer_valid)
 
 
 def shares_batch(cl: torch.Tensor, self_codes: torch.Tensor,
@@ -164,7 +182,7 @@ def friend_union_batch(cl: torch.Tensor, kmer_valid: torch.Tensor,
         colmin = torch.where(m, lab[:, :, None], K).min(dim=1).values
         back = torch.where(m, colmin[:, None, :], K).min(dim=2).values
         return torch.minimum(lab, back)
-    return _canonical(_propagate(step, kmer_valid), kmer_valid)
+    return _canonical(_propagate(step, kmer_valid)[0], kmer_valid)
 
 
 def _friends(cl: torch.Tensor, self_codes: torch.Tensor, n_codes: int,
@@ -317,11 +335,17 @@ def cluster_codes(inc: Incidence, min_share: int = 2, mode: str = "friend",
         K, C = int(kc), _size_class(int(longest[codes].max()))
         bsz = max(1, max_batch_bytes // _row_bytes(mode, K, C, F))
         for a in range(0, len(codes), bsz):
-            chunk = torch.from_numpy(codes[a:a + bsz]).to(dev)
-            pos, valid, cl = batch_lists(inc, chunk, K, C)
+            sel = codes[a:a + bsz]
+            chunk = torch.from_numpy(sel).to(dev)
             if mode == "pair":
+                with timing.span("cluster.pair.lists", device=True):
+                    pos, valid, cl = batch_lists(inc, chunk, K, C)
                 labels = cluster_batch(cl, valid, min_share, max_batch_bytes)
+                timing.add("cluster.pair_cells", len(sel) * K * K)
+                timing.add("cluster.pair_real_cells",
+                           int((sizes[sel].astype(np.int64) ** 2).sum()))
             else:
+                pos, valid, cl = batch_lists(inc, chunk, K, C)
                 labels = friend_union_batch(cl, valid, table[chunk])
             out[pos[valid]] = labels[valid]
     return out

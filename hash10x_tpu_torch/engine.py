@@ -69,10 +69,13 @@ counters held from a friend clustering's propagation on:
 kernel swept and the links it made, summed on the device and read with
 ``stats``; from the one-card path and, with one process on CUDA, from the
 sharded path; 0 on the plain rounds, which the CPU and several processes
-run).  On CUDA,
-``table.flush``, ``cluster.cooccur``, ``cluster.edges`` and
-``cluster.round`` also give ``N.device_s``: the stream's seconds between
-their marks.  The sharded paths (``n_shards > 1``) record the same names
+run).  Pair clustering (``cluster/cooccur.py``) records a batch each
+``cluster.pair.lists``, ``cluster.pair.support`` and ``cluster.pair.round``,
+and the counters ``cluster.pair_rounds``, ``cluster.pair_cells`` and
+``cluster.pair_real_cells``.  On CUDA,
+``table.flush``, ``cluster.cooccur``, ``cluster.edges``,
+``cluster.round`` and the ``cluster.pair.*`` spans also give
+``N.device_s``: the stream's seconds between their marks.  The sharded paths (``n_shards > 1``) record the same names
 (``cluster.*`` from ``cluster/sparse_dist.py``), the span ``shard.route``
 (every routing outside a CUDA graph, with ``.device_s`` on CUDA) and three
 more counters, held from a sharded count or incidence pass on:
