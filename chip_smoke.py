@@ -5,10 +5,10 @@ occurrence-count and checkpoint paths at full lane scale, and byte-level
 checks against the C stand-in and the CPU.
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
-(``python3 chip_smoke.py --only 15,16,17,18,21,23,24,25,26,27`` builds
-the kernel and runs only the phases named, any of 15-18 and 21 after
-phase 4, whose outputs they are held to; its last line is the same JSON
-result, with a kernels line only for phase 27.)
+(``python3 chip_smoke.py --only 15,16,17,18,21,23,24,25,26,27,28``
+builds the kernel and runs only the phases named, any of 15-18 and 21
+after phase 4, whose outputs they are held to; its last line is the same
+JSON result, with a kernels line only for phases 27 and 28.)
 
 Phases (any failure exits non-zero):
   1. device   - the card's name and power limit (nvidia-smi) and torch's name
@@ -185,6 +185,16 @@ Phases (any failure exits non-zero):
                 the kernel's device ms, the plain rounds' ms and the bound
                 (union_find.bound); the kernels line's entry is the
                 slice-sized graph's
+ 28. pair     - pair clustering's components kernel
+                (csrc/pair_components.cu) against the plain rounds
+                (cluster/cooccur.py _pair_rounds: threshold, adjacency,
+                min-label rounds) on S of the first K = 1,024 batch of the
+                chr20_30x_slice.pair cell's lane (78 barcodes, built on the
+                card through count, filter and incidence): labels
+                identical and links = valid k-mers less components; the
+                kernel's device ms, the plain rounds' ms and the bound
+                (pair_components.bound); then the lane's whole pair
+                clustering: one launch and one round a batch
 The last two lines of stdout before the result are a JSON line describing
 the kernels and the card's name and power limit; the last line is the JSON
 result {"ok": true, "device": {...}}.
@@ -2793,8 +2803,115 @@ def phase_propagate(torch, run, tmp, main_launches=None):
             "device_ms": device_ms, "bound_share": bound_ms / device_ms}
 
 
+# -- phase 28: pair clustering's components kernel ------------------------------
+
+PAIR_CELL = "chr20_30x_slice.pair"   # the benchmark cell whose lane is used
+PAIR_SEED = 3000023001
+PAIR_K = 1024            # the size class that holds most of the slice's rows
+
+
+def pair_slice_pass(torch):
+    """The engine of one pass of the pair cell's lane (``PAIR_SEED``)
+    through count, filter and incidence on the card."""
+    from benchmark.lane import lane_of
+    from benchmark.program import System
+    from benchmark.run import load_cell
+    _, _, cfg, traffic = load_cell(PAIR_CELL)
+    stages = [s for s in traffic["stages"]
+              if s["call"] in ("count", "filter", "incidence")]
+    t0 = time.monotonic()
+    system = System(cfg, dict(traffic, stages=stages),
+                    lane_of(cfg, PAIR_SEED), torch.device("cuda"))
+    eng = system.run_pass().engine
+    print(f"pair: {PAIR_CELL} lane (seed {PAIR_SEED}) counted and its "
+          f"incidence built in {time.monotonic() - t0:.1f} s: "
+          f"{eng.inc.n_codes} barcodes, {eng.inc.n_pairs} pairs", flush=True)
+    return eng
+
+
+def phase_pair(torch, eng):
+    """Phase 28: the pair-components kernel (``kernels/pair_components.py``)
+    on the card, against the plain rounds (``cooccur._pair_rounds``: the
+    threshold, the (B, K, K) adjacency and min-label rounds) on S of the
+    first K = PAIR_K batch of the pair cell's slice lane (its
+    ``batch_lists`` and ``_support`` as ``cluster_codes`` takes them):
+    labels identical; device ms (kernel_device_ms) against the bound
+    (``pair_components.bound``: the rows' triangles, flags and labels at
+    3.35 TB/s) and the plain rounds' ms (CUDA events; host reads
+    included).  Then the engine's whole pair clustering of that lane: one
+    launch and one round a batch.  Returns the kernels line's entry."""
+    from hash10x_tpu_torch.cluster import cooccur
+    from hash10x_tpu_torch.kernels import pair_components as PC
+    t0 = time.monotonic()
+    PC.build()
+    print(f"pair components build: {time.monotonic() - t0:.3f} s",
+          flush=True)
+    inc, share = eng.inc, eng.cfg.min_share
+    K, C, sel = next(b for b in cooccur._batches(inc, "pair")
+                     if b[0] == PAIR_K)
+    _, valid, cl = cooccur.batch_lists(inc, torch.from_numpy(sel).cuda(), K,
+                                       C)
+    s = cooccur._support(cl, cooccur._BATCH_BYTES)
+    del cl
+    lab, hooks = PC.components(s, valid, share)
+    plain, rounds = cooccur._pair_rounds(s, valid, share)
+    torch.cuda.synchronize()
+    if not torch.equal(lab, plain):
+        fail(f"pair components: kernel labels differ from the plain rounds' "
+             f"on the ({s.shape[0]}, {K}, {K}) slice batch")
+    n = valid.sum(1).tolist()
+    comps = sum(int(torch.unique(plain[b][valid[b]]).shape[0])
+                for b in range(len(n)))
+    if int(hooks) != sum(n) - comps:
+        fail(f"pair components: {int(hooks)} links, not the {sum(n)} valid "
+             f"k-mers less the {comps} components")
+    del lab, plain
+    device_ms = kernel_device_ms(
+        torch, lambda: PC.components(s, valid, share), n=20)
+    ms = events_ms(torch, lambda: PC.components(s, valid, share), n=20)
+    plain_ms = events_ms(
+        torch, lambda: cooccur._pair_rounds(s, valid, share), n=3)
+    nbytes, bound_ms = PC.bound(n, K)
+    print(f"pair components: slice batch ({s.shape[0]}, {K}, {K}), C {C}, "
+          f"min_share {share}, valid k-mers a row {min(n)}-{max(n)} (mean "
+          f"{sum(n) / len(n):.1f}), {comps} components, links "
+          f"{int(hooks)}; labels identical to the plain rounds' ({rounds} "
+          f"rounds); device ms {device_ms:.4f}, wrapper ms {ms:.4f}, plain "
+          f"rounds ms {plain_ms:.3f}; bound {bound_ms:.4f} ms ({nbytes} "
+          f"bytes), share {bound_ms / device_ms:.4f}", flush=True)
+    del s, valid
+    free_device(torch)
+
+    PC.LAUNCHES = 0
+    eng.timer.clear()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    eng.cluster()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    st = eng.stats
+    batches = st["cluster.pair.round.n"]
+    if not (PC.LAUNCHES == batches == st["cluster.pair_rounds"]
+            == st["cluster.pair.support.n"]):
+        fail(f"pair components: the lane's clustering launched "
+             f"{PC.LAUNCHES} times and ran {st['cluster.pair_rounds']} "
+             f"rounds over {batches} batches")
+    print(f"pair components: the lane's pair clustering {wall:.3f} s, "
+          f"{batches} batches, launches {PC.LAUNCHES}, rounds "
+          f"{st['cluster.pair_rounds']}, cluster.pair_uf_hooks "
+          f"{st['cluster.pair_uf_hooks']}; round span device s "
+          f"{st['cluster.pair.round.device_s']:.4f}, support span device s "
+          f"{st['cluster.pair.support.device_s']:.4f}", flush=True)
+    return {"name": "pair_components", "route": "cuda",
+            "source": "hash10x_tpu_torch/csrc/pair_components.cu",
+            "replaces": None, "launches": PC.LAUNCHES,
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "device_ms": device_ms, "bound_share": bound_ms / device_ms}
+
+
 def run_only(torch, MK, ES, run, only):
-    """``--only 15,16,17,18,21,23,24,25,26,27``: after the build, only the
+    """``--only 15,16,17,18,21,23,24,25,26,27,28``: after the build, only the
     phases named (15-18 and 21 after phase 4)."""
     from hash10x_tpu_torch.bench import make_barcodes_lane
     kernels = []
@@ -2831,6 +2948,8 @@ def run_only(torch, MK, ES, run, only):
             phase_crib_scale(torch, MK, ES, run, tmp)
         if 27 in only:
             kernels.append(phase_propagate(torch, run, tmp))
+        if 28 in only:
+            kernels.append(phase_pair(torch, pair_slice_pass(torch)))
     if kernels:
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2936,6 +3055,8 @@ def main() -> int:
         elapsed("phase 26")
         union_find = phase_propagate(torch, run, tmp, uf_launches)
         elapsed("phase 27")
+        pair = phase_pair(torch, pair_slice_pass(torch))
+        elapsed("phase 28")
 
     kernels = [kernel_entry(
         "seqhash_sketch", launches, max(max_err, fuzz_err), *main_times,
@@ -2966,6 +3087,7 @@ def main() -> int:
         "seqhash_sketch_kmer_crib_lane20x", crib20x_launches, crib[0],
         *crib[1:], (crib_rows, 1 << 15, (1 << 15) - K + 1, K, "kmer")))
     kernels.append(union_find)
+    kernels.append(pair)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,13 @@ holds rows of one padded width K.  Per batch:
    descending, then smaller id, kept iff share >= the threshold (one row of
    ``friends_table``); a k-mer and a friend link iff the friend is in the
    k-mer's list;
-3. min-label propagation to the fixpoint: each k-mer's label is the
-   smallest k-mer index of its component;
+3. the fixpoint of min-label propagation: each k-mer's label is the
+   smallest k-mer index of its component.  Pair mode on CUDA takes it from
+   one union-find pass over each row's S in the kernel of
+   ``kernels/pair_components.py``, which applies the threshold as it reads
+   S (no (B, K, K) adjacency, no host read); on the CPU, and in
+   capped-friend mode, rounds of a ``where`` and a ``min`` run to the
+   fixpoint, one host read a round;
 4. canonical ranks: the number of distinct component labels below a
    k-mer's label, which is first-appearance numbering (oracle:
    ``hash10x_tpu/oracle/cluster_ref.py``).
@@ -35,12 +40,15 @@ a TPU choice).
 Spans and counters (``utils/timing.py``, on the engine's timer while it
 clusters; none adds a synchronisation): pair mode records, a batch each,
 ``cluster.pair.lists`` (``batch_lists``' gather), ``cluster.pair.support``
-(dense ranks, D, D @ D^T and the adjacency) and ``cluster.pair.round``
-(every propagation round of the batch), each with stream seconds on CUDA,
-and the counters ``cluster.pair_rounds`` (rounds run, summed over the
-batches), ``cluster.pair_cells`` (the B * K * K support cells computed) and
-``cluster.pair_real_cells`` (the sum of n_c^2 over the batches' barcodes,
-n_c a barcode's k-mers: the cells that are not padding).
+(dense ranks, D and D @ D^T) and ``cluster.pair.round`` (the threshold and
+the propagation: on CUDA the kernel's one pass, on the CPU the adjacency
+and every round), each with stream seconds on CUDA, and the counters
+``cluster.pair_rounds`` (rounds run, summed over the batches: 1 a batch on
+CUDA, one pass), ``cluster.pair_uf_hooks`` (the kernel's links, summed on
+the device; 0 on the CPU), ``cluster.pair_cells`` (the B * K * K support
+cells computed) and ``cluster.pair_real_cells`` (the sum of n_c^2 over the
+batches' barcodes, n_c a barcode's k-mers: the cells that are not
+padding).
 
 The JAX package takes each batch's friends from a dense (B, n_codes) share
 row and a ``top_k`` over it (``_friends`` here, kept as the reference the
@@ -55,6 +63,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels import pair_components
 from ..table.incidence import Incidence
 from ..utils import timing
 
@@ -126,25 +135,43 @@ def _support(cl: torch.Tensor, max_bytes: int) -> torch.Tensor:
     return s
 
 
+def _pair_rounds(s: torch.Tensor, kmer_valid: torch.Tensor,
+                 min_share: int) -> tuple:
+    """The plain version of ``kernels/pair_components.py``: the adjacency
+    S - 1 >= ``min_share`` between valid k-mers (each valid k-mer linked to
+    itself) and min-label rounds over it to the fixpoint.  Returns the
+    labels (B, K) int64 (a pad's K) and the rounds run."""
+    K = s.shape[1]
+    both = kmer_valid[:, :, None] & kmer_valid[:, None, :]
+    adj = (s - 1.0 >= min_share) & both
+    adj |= torch.eye(K, dtype=torch.bool, device=s.device)[None] \
+        & kmer_valid[:, :, None]
+
+    def step(lab):
+        nbr = torch.where(adj, lab[:, None, :], K).min(dim=2).values
+        return torch.minimum(lab, nbr)
+    return _propagate(step, kmer_valid)
+
+
 def cluster_batch(cl: torch.Tensor, kmer_valid: torch.Tensor,
                   min_share: int = 2,
                   max_bytes: int = _BATCH_BYTES) -> torch.Tensor:
     """Pair mode on one padded batch: ``cl (B, K, C)`` sorted barcode ids
     per k-mer, -1 padded; ``kmer_valid (B, K)``.  Returns canonical labels
-    (B, K) int64, pad rows -1."""
-    K = cl.shape[1]
+    (B, K) int64, pad rows -1.  CUDA tensors take the pair-components
+    kernel (one pass, no host read), CPU tensors the plain rounds; both
+    give the same labels."""
     with timing.span("cluster.pair.support", device=True):
         s = _support(cl, max_bytes)
-        both = kmer_valid[:, :, None] & kmer_valid[:, None, :]
-        adj = (s - 1.0 >= min_share) & both
-        adj |= torch.eye(K, dtype=torch.bool, device=cl.device)[None] \
-            & kmer_valid[:, :, None]
-
-    def step(lab):
-        nbr = torch.where(adj, lab[:, None, :], K).min(dim=2).values
-        return torch.minimum(lab, nbr)
     with timing.span("cluster.pair.round", device=True):
-        lab, rounds = _propagate(step, kmer_valid)
+        if s.device.type == "cpu":
+            lab, rounds = _pair_rounds(s, kmer_valid, min_share)
+            timing.add("cluster.pair_uf_hooks", 0)
+        else:
+            lab, hooks = pair_components.components(s, kmer_valid,
+                                                    min_share)
+            rounds = 1
+            timing.add_device("cluster.pair_uf_hooks", hooks)
     timing.add("cluster.pair_rounds", rounds)
     return _canonical(lab, kmer_valid)
 
@@ -299,6 +326,29 @@ def _row_bytes(mode: str, K: int, C: int, F: int) -> int:
     return 8 * (2 * K * C + 4 * K * F)
 
 
+def _batches(inc: Incidence, mode: str, F: int = 0,
+            max_batch_bytes: int = _BATCH_BYTES):
+    """The padded batches ``cluster_codes`` takes, in its order: ``(K, C,
+    codes)`` for each, the barcodes ``codes`` (int64 numpy, of one size
+    class K: ascending k-mer count) whose longest k-mer list fits C, as
+    many a batch as ``max_batch_bytes`` holds (``_row_bytes``)."""
+    code_of = inc.code_of_pair()
+    list_lens = torch.diff(inc.kmer_offsets)
+    longest = torch.zeros(inc.n_codes, dtype=torch.int64, device=inc.device)
+    longest.scatter_reduce_(0, code_of, list_lens[inc.code_kmers], "amax")
+    sizes = torch.diff(inc.code_offsets).cpu().numpy()
+    longest = longest.cpu().numpy()
+    order = np.argsort(sizes, kind="stable")
+    active = order[sizes[order] > 0]
+    kcs = np.array([_size_class(int(n)) for n in sizes[active]])
+    for kc in np.unique(kcs):
+        codes = active[kcs == kc]
+        K, C = int(kc), _size_class(int(longest[codes].max()))
+        bsz = max(1, max_batch_bytes // _row_bytes(mode, K, C, F))
+        for a in range(0, len(codes), bsz):
+            yield K, C, codes[a:a + bsz]
+
+
 def cluster_codes(inc: Incidence, min_share: int = 2, mode: str = "friend",
                   min_friend_share: int = 8, max_friends: int = 256,
                   max_batch_bytes: int = _BATCH_BYTES) -> torch.Tensor:
@@ -318,34 +368,21 @@ def cluster_codes(inc: Incidence, min_share: int = 2, mode: str = "friend",
     out = torch.full((inc.n_pairs,), -1, dtype=torch.int64, device=dev)
     if inc.n_pairs == 0:
         return out
-    code_of = inc.code_of_pair()
-    list_lens = torch.diff(inc.kmer_offsets)
-    longest = torch.zeros(inc.n_codes, dtype=torch.int64, device=dev)
-    longest.scatter_reduce_(0, code_of, list_lens[inc.code_kmers], "amax")
-    sizes = torch.diff(inc.code_offsets).cpu().numpy()
-    longest = longest.cpu().numpy()
     table = (friends_table(inc, min_friend_share, max_friends)
              if mode == "friend" else None)
     F = table.shape[1] if mode == "friend" else 0
-    order = np.argsort(sizes, kind="stable")
-    active = order[sizes[order] > 0]
-    kcs = np.array([_size_class(int(n)) for n in sizes[active]])
-    for kc in np.unique(kcs):
-        codes = active[kcs == kc]
-        K, C = int(kc), _size_class(int(longest[codes].max()))
-        bsz = max(1, max_batch_bytes // _row_bytes(mode, K, C, F))
-        for a in range(0, len(codes), bsz):
-            sel = codes[a:a + bsz]
-            chunk = torch.from_numpy(sel).to(dev)
-            if mode == "pair":
-                with timing.span("cluster.pair.lists", device=True):
-                    pos, valid, cl = batch_lists(inc, chunk, K, C)
-                labels = cluster_batch(cl, valid, min_share, max_batch_bytes)
-                timing.add("cluster.pair_cells", len(sel) * K * K)
-                timing.add("cluster.pair_real_cells",
-                           int((sizes[sel].astype(np.int64) ** 2).sum()))
-            else:
+    sizes = torch.diff(inc.code_offsets).cpu().numpy()
+    for K, C, sel in _batches(inc, mode, F, max_batch_bytes):
+        chunk = torch.from_numpy(sel).to(dev)
+        if mode == "pair":
+            with timing.span("cluster.pair.lists", device=True):
                 pos, valid, cl = batch_lists(inc, chunk, K, C)
-                labels = friend_union_batch(cl, valid, table[chunk])
-            out[pos[valid]] = labels[valid]
+            labels = cluster_batch(cl, valid, min_share, max_batch_bytes)
+            timing.add("cluster.pair_cells", len(sel) * K * K)
+            timing.add("cluster.pair_real_cells",
+                       int((sizes[sel].astype(np.int64) ** 2).sum()))
+        else:
+            pos, valid, cl = batch_lists(inc, chunk, K, C)
+            labels = friend_union_batch(cl, valid, table[chunk])
+        out[pos[valid]] = labels[valid]
     return out

@@ -71,8 +71,9 @@ kernel swept and the links it made, summed on the device and read with
 sharded path; 0 on the plain rounds, which the CPU and several processes
 run).  Pair clustering (``cluster/cooccur.py``) records a batch each
 ``cluster.pair.lists``, ``cluster.pair.support`` and ``cluster.pair.round``,
-and the counters ``cluster.pair_rounds``, ``cluster.pair_cells`` and
-``cluster.pair_real_cells``.  On CUDA,
+and the counters ``cluster.pair_rounds``, ``cluster.pair_uf_hooks`` (the
+pair-components kernel's links, summed on the device; 0 on the CPU's
+rounds), ``cluster.pair_cells`` and ``cluster.pair_real_cells``.  On CUDA,
 ``table.flush``, ``cluster.cooccur``, ``cluster.edges``,
 ``cluster.round`` and the ``cluster.pair.*`` spans also give
 ``N.device_s``: the stream's seconds between their marks.  The sharded paths (``n_shards > 1``) record the same names

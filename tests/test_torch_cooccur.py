@@ -64,7 +64,9 @@ def check_all(inc, mode, share, max_friends=256, **port_kw):
     return got
 
 
-@pytest.mark.parametrize("min_share,density", [(1, 0.1), (2, 0.2), (3, 0.3)])
+@pytest.mark.parametrize("min_share,density", [(1, 0.1), (2, 0.2), (3, 0.3),
+                                               (1, 0.03), (2, 0.45),
+                                               (3, 0.6)])
 def test_pair_matches_jax_and_oracle(rng, min_share, density):
     inc = random_incidence(rng, density=density)
     check_all(inc, "pair", min_share)
