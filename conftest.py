@@ -9,7 +9,8 @@ the tests import again as ``benchmark.tests.conftest``) are given it."""
 import sys
 
 # configuration -> the configuration whose lane, and so tiny shape, it has
-SAME_LANE = {"chr20_30x_slice_pair": "chr20_30x_slice"}
+SAME_LANE = {"chr20_30x_slice_pair": "chr20_30x_slice",
+             "chr20_30x_slice_capped": "chr20_30x_slice"}
 
 
 def _extend(mod) -> None:

@@ -48,7 +48,18 @@ CUDA, one pass), ``cluster.pair_uf_hooks`` (the kernel's links, summed on
 the device; 0 on the CPU), ``cluster.pair_cells`` (the B * K * K support
 cells computed) and ``cluster.pair_real_cells`` (the sum of n_c^2 over the
 batches' barcodes, n_c a barcode's k-mers: the cells that are not
-padding).
+padding).  Capped-friend mode records ``cluster.capped.friends`` (one a
+pass: ``friends_table``, with ``cluster.cooccur`` inside it), and a batch
+each ``cluster.capped.member`` (``batch_lists``' gather and the (B, K, F)
+membership mask of ``_membership``) and ``cluster.capped.round`` (every
+round of ``_friend_rounds`` and the canonical ranks), each with stream
+seconds on CUDA, and the counters ``cluster.capped_rounds`` (rounds run,
+summed over the batches, the last, unchanged one of each included: one
+host read each), ``cluster.capped_cells`` (the B * K * F membership cells
+of the batches), ``cluster.capped_real_cells`` (the sum of n_c * f_c over
+the barcodes, f_c the friends in c's row: the cells that are not padding)
+and ``cluster.capped_cut`` (the barcodes that have more friends at the
+threshold than the cap keeps); the last two are summed on the device.
 
 The JAX package takes each batch's friends from a dense (B, n_codes) share
 row and a ``top_k`` over it (``_friends`` here, kept as the reference the
@@ -190,12 +201,12 @@ def shares_batch(cl: torch.Tensor, self_codes: torch.Tensor,
     return acc
 
 
-def friend_union_batch(cl: torch.Tensor, kmer_valid: torch.Tensor,
-                       friends: torch.Tensor) -> torch.Tensor:
-    """Components of the bipartite (k-mer, friend) graph of one padded
-    batch: ``cl (B, K, C)`` ascending lists (-1 pad), ``friends (B, F)``
-    (-1 pad).  A k-mer and a friend connect iff the friend's id is in the
-    k-mer's list.  Returns canonical labels (B, K), pad rows -1."""
+def _membership(cl: torch.Tensor, kmer_valid: torch.Tensor,
+                friends: torch.Tensor) -> torch.Tensor:
+    """The (B, K, F) mask of the bipartite (k-mer, friend) graph of one
+    padded batch: ``cl (B, K, C)`` ascending lists (-1 pad), ``friends
+    (B, F)`` (-1 pad); a valid k-mer and a friend connect iff the friend's
+    id is in the k-mer's list."""
     B, K, C = cl.shape
     F = friends.shape[1]
     clp = torch.where(cl < 0, _PAD, cl)
@@ -203,13 +214,31 @@ def friend_union_batch(cl: torch.Tensor, kmer_valid: torch.Tensor,
     fq_k = fq[:, None, :].expand(B, K, F).contiguous()
     idx = torch.searchsorted(clp, fq_k)
     hit = torch.gather(clp, 2, torch.clamp(idx, max=C - 1))
-    m = (hit == fq_k) & kmer_valid[:, :, None]
+    return (hit == fq_k) & kmer_valid[:, :, None]
+
+
+def _friend_rounds(m: torch.Tensor, kmer_valid: torch.Tensor) -> tuple:
+    """Min-label rounds over the membership mask ``m`` (``_membership``)
+    to the fixpoint: k-mer labels to each friend's column minimum and
+    back.  Returns the labels (B, K) int64 (a pad's K) and the rounds
+    run."""
+    K = m.shape[1]
 
     def step(lab):
         colmin = torch.where(m, lab[:, :, None], K).min(dim=1).values
         back = torch.where(m, colmin[:, None, :], K).min(dim=2).values
         return torch.minimum(lab, back)
-    return _canonical(_propagate(step, kmer_valid)[0], kmer_valid)
+    return _propagate(step, kmer_valid)
+
+
+def friend_union_batch(cl: torch.Tensor, kmer_valid: torch.Tensor,
+                       friends: torch.Tensor) -> torch.Tensor:
+    """Components of the bipartite (k-mer, friend) graph of one padded
+    batch: ``cl (B, K, C)`` ascending lists (-1 pad), ``friends (B, F)``
+    (-1 pad).  A k-mer and a friend connect iff the friend's id is in the
+    k-mer's list.  Returns canonical labels (B, K), pad rows -1."""
+    m = _membership(cl, kmer_valid, friends)
+    return _canonical(_friend_rounds(m, kmer_valid)[0], kmer_valid)
 
 
 def _friends(cl: torch.Tensor, self_codes: torch.Tensor, n_codes: int,
@@ -238,7 +267,9 @@ def friends_table(inc: Incidence, thr: int, max_friends: int,
     holds ``max_friends``; those are filled here too, so every row equals
     the dense one.  Returns (n_codes, W) int64, -1 padded: W =
     min(max_friends, n_codes) with ``pad`` or ``thr <= 0``, else the
-    longest row (columns past it are -1 in every dense row)."""
+    longest row (columns past it are -1 in every dense row).  Adds the
+    codes with more such friends than ``max_friends`` to the counter
+    ``cluster.capped_cut``, on the device."""
     from .sparse import STATS, cooccurrence_counts
     n, dev = inc.n_codes, inc.device
     F = min(max_friends, n)
@@ -260,6 +291,7 @@ def friends_table(inc: Incidence, thr: int, max_friends: int,
         - (torch.cumsum(per_code, 0) - per_code)[code]
     keep = rank < F
     kept = torch.clamp(per_code, max=F)
+    timing.add_device("cluster.capped_cut", (per_code > F).sum())
     W = F if pad or thr <= 0 else max(1, int(kept.max()) if n else 1)
     table = torch.full((n, W), -1, dtype=torch.int64, device=dev)
     table[code[keep], rank[keep]] = friend[keep]
@@ -319,8 +351,13 @@ def batch_lists(inc: Incidence, chunk: torch.Tensor, K: int, C: int):
 def _row_bytes(mode: str, K: int, C: int, F: int) -> int:
     """Working set of one batch row in bytes (int64 and float32 cells):
     pair mode holds CL and its sort (K*C), S and the propagation temporaries
-    (K*K); friend mode holds CL and the membership temporaries of its ``F``
-    friends (K*F)."""
+    (K*K); friend mode holds CL and its padded copy (2*K*C) and, while
+    ``_membership`` runs, four int64 (K, F) cells: the friends broadcast,
+    their search positions, those clamped and the ids gathered there (its
+    rounds hold less: a ``where`` at a time).  On an H100 the chr20 slice's
+    capped batches (K = 1,024, C = 64, F = 256) took 9,450,496 bytes a row
+    at their peak while masking (9,437,184 here) and 5.0-6.6 MB a row in
+    their rounds."""
     if mode == "pair":
         return 8 * (4 * K * C + 3 * K * K)
     return 8 * (2 * K * C + 4 * K * F)
@@ -368,9 +405,14 @@ def cluster_codes(inc: Incidence, min_share: int = 2, mode: str = "friend",
     out = torch.full((inc.n_pairs,), -1, dtype=torch.int64, device=dev)
     if inc.n_pairs == 0:
         return out
-    table = (friends_table(inc, min_friend_share, max_friends)
-             if mode == "friend" else None)
-    F = table.shape[1] if mode == "friend" else 0
+    F = 0
+    if mode == "friend":
+        with timing.span("cluster.capped.friends", device=True):
+            table = friends_table(inc, min_friend_share, max_friends)
+        F = table.shape[1]
+        timing.add_device("cluster.capped_real_cells",
+                          (torch.diff(inc.code_offsets)
+                           * (table >= 0).sum(1)).sum())
     sizes = torch.diff(inc.code_offsets).cpu().numpy()
     for K, C, sel in _batches(inc, mode, F, max_batch_bytes):
         chunk = torch.from_numpy(sel).to(dev)
@@ -382,7 +424,15 @@ def cluster_codes(inc: Incidence, min_share: int = 2, mode: str = "friend",
             timing.add("cluster.pair_real_cells",
                        int((sizes[sel].astype(np.int64) ** 2).sum()))
         else:
-            pos, valid, cl = batch_lists(inc, chunk, K, C)
-            labels = friend_union_batch(cl, valid, table[chunk])
+            with timing.span("cluster.capped.member", device=True):
+                pos, valid, cl = batch_lists(inc, chunk, K, C)
+                m = _membership(cl, valid, table[chunk])
+                del cl
+            with timing.span("cluster.capped.round", device=True):
+                lab, rounds = _friend_rounds(m, valid)
+                labels = _canonical(lab, valid)
+                del m
+            timing.add("cluster.capped_rounds", rounds)
+            timing.add("cluster.capped_cells", len(sel) * K * F)
         out[pos[valid]] = labels[valid]
     return out

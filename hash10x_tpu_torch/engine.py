@@ -42,8 +42,10 @@ exchanges cross the host).
 
 ``stats`` holds what the engine's timer (``utils/timing.py``) recorded since
 the engine was made or last reset, as flat numbers, none of them read from
-the device but ``cluster.uf_hooks`` and the sharded paths'
-``shard.route_keys`` (below): the counters ``dispatches`` (multi-batch
+the device but the counters summed there (``cluster.uf_hooks``,
+``cluster.pair_uf_hooks``, ``cluster.capped_real_cells``,
+``cluster.capped_cut`` and the sharded paths' ``shard.route_keys``,
+below): the counters ``dispatches`` (multi-batch
 steps sent to the device in count and incidence, sharded or not),
 ``flushes`` (sort-merges of an append buffer into a table during the
 engine's stages), ``graph_captures`` (step shapes captured into CUDA
@@ -73,9 +75,15 @@ run).  Pair clustering (``cluster/cooccur.py``) records a batch each
 ``cluster.pair.lists``, ``cluster.pair.support`` and ``cluster.pair.round``,
 and the counters ``cluster.pair_rounds``, ``cluster.pair_uf_hooks`` (the
 pair-components kernel's links, summed on the device; 0 on the CPU's
-rounds), ``cluster.pair_cells`` and ``cluster.pair_real_cells``.  On CUDA,
+rounds), ``cluster.pair_cells`` and ``cluster.pair_real_cells``.
+Capped-friend clustering (``max_friends > 0``) records
+``cluster.capped.friends`` once, a batch each ``cluster.capped.member`` and
+``cluster.capped.round``, and the counters ``cluster.capped_rounds``,
+``cluster.capped_cells``, ``cluster.capped_real_cells`` and
+``cluster.capped_cut`` (the last two summed on the device).  On CUDA,
 ``table.flush``, ``cluster.cooccur``, ``cluster.edges``,
-``cluster.round`` and the ``cluster.pair.*`` spans also give
+``cluster.round`` and the ``cluster.pair.*`` and ``cluster.capped.*``
+spans also give
 ``N.device_s``: the stream's seconds between their marks.  The sharded paths (``n_shards > 1``) record the same names
 (``cluster.*`` from ``cluster/sparse_dist.py``), the span ``shard.route``
 (every routing outside a CUDA graph, with ``.device_s`` on CUDA) and three
