@@ -5,10 +5,10 @@ occurrence-count and checkpoint paths at full lane scale, and byte-level
 checks against the C stand-in and the CPU.
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
-(``python3 chip_smoke.py --only 15,16,17,18,21,23,24,25,26,27,28``
+(``python3 chip_smoke.py --only 15,16,17,18,21,23,24,25,26,27,28,29``
 builds the kernel and runs only the phases named, any of 15-18 and 21
 after phase 4, whose outputs they are held to; its last line is the same
-JSON result, with a kernels line only for phases 27 and 28.)
+JSON result, with a kernels line only for phases 27-29.)
 
 Phases (any failure exits non-zero):
   1. device   - the card's name and power limit (nvidia-smi) and torch's name
@@ -194,6 +194,18 @@ Phases (any failure exits non-zero):
                 identical and links = valid k-mers less components; the
                 kernel's device ms, the plain rounds' ms and the bound
                 (pair_components.bound); then the lane's whole pair
+                clustering: one launch and one round a batch
+ 29. capped   - capped-friend clustering's components kernel
+                (csrc/friend_components.cu) against the plain rounds
+                (cluster/cooccur.py _friend_rounds: min-label rounds over
+                the (B, K, F) membership mask) on the mask of the first
+                K = 1,024 batch of the chr20_30x_slice.capped cell's lane
+                (227 barcodes, F = 256, built on the card through count,
+                filter, incidence, the friend table and the membership
+                test): labels identical and links = valid k-mers + friends
+                touched - components; the kernel's device ms, the wrapper's
+                ms, the plain rounds' ms and the bound
+                (friend_components.bound); then the lane's whole capped
                 clustering: one launch and one round a batch
 The last two lines of stdout before the result are a JSON line describing
 the kernels and the card's name and power limit; the last line is the JSON
@@ -2803,27 +2815,29 @@ def phase_propagate(torch, run, tmp, main_launches=None):
             "device_ms": device_ms, "bound_share": bound_ms / device_ms}
 
 
-# -- phase 28: pair clustering's components kernel ------------------------------
+# -- phases 28-29: pair and capped-friend clustering's components kernels ---
 
 PAIR_CELL = "chr20_30x_slice.pair"   # the benchmark cell whose lane is used
 PAIR_SEED = 3000023001
 PAIR_K = 1024            # the size class that holds most of the slice's rows
+CAPPED_CELL = "chr20_30x_slice.capped"
+CAPPED_SEED = 3000025001
 
 
-def pair_slice_pass(torch):
-    """The engine of one pass of the pair cell's lane (``PAIR_SEED``)
-    through count, filter and incidence on the card."""
+def slice_pass(torch, cell, seed, what):
+    """The engine of one pass of ``cell``'s lane (``seed``) through count,
+    filter and incidence on the card."""
     from benchmark.lane import lane_of
     from benchmark.program import System
     from benchmark.run import load_cell
-    _, _, cfg, traffic = load_cell(PAIR_CELL)
+    _, _, cfg, traffic = load_cell(cell)
     stages = [s for s in traffic["stages"]
               if s["call"] in ("count", "filter", "incidence")]
     t0 = time.monotonic()
-    system = System(cfg, dict(traffic, stages=stages),
-                    lane_of(cfg, PAIR_SEED), torch.device("cuda"))
+    system = System(cfg, dict(traffic, stages=stages), lane_of(cfg, seed),
+                    torch.device("cuda"))
     eng = system.run_pass().engine
-    print(f"pair: {PAIR_CELL} lane (seed {PAIR_SEED}) counted and its "
+    print(f"{what}: {cell} lane (seed {seed}) counted and its "
           f"incidence built in {time.monotonic() - t0:.1f} s: "
           f"{eng.inc.n_codes} barcodes, {eng.inc.n_pairs} pairs", flush=True)
     return eng
@@ -2910,9 +2924,101 @@ def phase_pair(torch, eng):
             "device_ms": device_ms, "bound_share": bound_ms / device_ms}
 
 
+def phase_capped(torch, eng):
+    """Phase 29: the friend-components kernel
+    (``kernels/friend_components.py``) on the card, against the plain
+    rounds (``cooccur._friend_rounds``: min-label rounds over the (B, K, F)
+    membership mask) on the mask of the first K = PAIR_K batch of the
+    capped cell's slice lane (its friend table, ``batch_lists`` and
+    ``_membership`` as ``cluster_codes`` takes them): labels identical,
+    links = valid k-mers + friends touched - components; device ms
+    (kernel_device_ms) against the bound (``friend_components.bound``: the
+    valid k-mers' mask cells, flags and labels at 3.35 TB/s), the wrapper's
+    ms and the plain rounds' ms (CUDA events; host reads included).  Then
+    the engine's whole capped clustering of that lane: one launch and one
+    round a batch.  Returns the kernels line's entry."""
+    from hash10x_tpu_torch.cluster import cooccur
+    from hash10x_tpu_torch.kernels import friend_components as FC
+    t0 = time.monotonic()
+    FC.build()
+    print(f"friend components build: {time.monotonic() - t0:.3f} s",
+          flush=True)
+    inc, cfg = eng.inc, eng.cfg
+    table = cooccur.friends_table(inc, cfg.min_friend_share, cfg.max_friends)
+    F = table.shape[1]
+    K, C, sel = next(b for b in cooccur._batches(inc, "friend", F)
+                     if b[0] == PAIR_K)
+    chunk = torch.from_numpy(sel).cuda()
+    _, valid, cl = cooccur.batch_lists(inc, chunk, K, C)
+    m = cooccur._membership(cl, valid, table[chunk])
+    del cl, table
+    lab, hooks = FC.components(m, valid)
+    plain, rounds = cooccur._friend_rounds(m, valid)
+    torch.cuda.synchronize()
+    if not torch.equal(lab, plain):
+        fail(f"friend components: kernel labels differ from the plain "
+             f"rounds' on the ({m.shape[0]}, {K}, {F}) slice batch")
+    n = valid.sum(1).tolist()
+    comps = sum(int(torch.unique(plain[b][valid[b]]).shape[0])
+                for b in range(len(n)))
+    touched = int(m.any(1).sum())
+    if int(hooks) != sum(n) + touched - comps:
+        fail(f"friend components: {int(hooks)} links, not the {sum(n)} "
+             f"valid k-mers and {touched} friends touched less the {comps} "
+             f"components")
+    set_cells = int(m.sum())
+    del lab, plain
+    device_ms = kernel_device_ms(
+        torch, lambda: FC.components(m, valid), n=20)
+    ms = events_ms(torch, lambda: FC.components(m, valid), n=20)
+    plain_ms = events_ms(
+        torch, lambda: cooccur._friend_rounds(m, valid), n=3)
+    nbytes, bound_ms = FC.bound(n, K, F)
+    print(f"friend components: slice batch ({m.shape[0]}, {K}, {F}), C {C}, "
+          f"valid k-mers a row {min(n)}-{max(n)} (mean "
+          f"{sum(n) / len(n):.1f}), set cells {set_cells} "
+          f"({set_cells / (sum(n) * F):.4f} of the valid rows'), friends "
+          f"touched {touched}, {comps} components, links {int(hooks)}; "
+          f"labels identical to the plain rounds' ({rounds} rounds); "
+          f"device ms {device_ms:.4f}, wrapper ms {ms:.4f}, plain rounds ms "
+          f"{plain_ms:.3f}; bound {bound_ms:.4f} ms ({nbytes} bytes), share "
+          f"{bound_ms / device_ms:.4f}", flush=True)
+    del m, valid
+    free_device(torch)
+
+    FC.LAUNCHES = 0
+    eng.timer.clear()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    eng.cluster()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    st = eng.stats
+    batches = st["cluster.capped.round.n"]
+    if not (FC.LAUNCHES == batches == st["cluster.capped_rounds"]
+            == st["cluster.capped.member.n"]):
+        fail(f"friend components: the lane's clustering launched "
+             f"{FC.LAUNCHES} times and ran {st['cluster.capped_rounds']} "
+             f"rounds over {batches} batches")
+    print(f"friend components: the lane's capped clustering {wall:.3f} s, "
+          f"{batches} batches, launches {FC.LAUNCHES}, rounds "
+          f"{st['cluster.capped_rounds']}, cluster.capped_uf_hooks "
+          f"{st['cluster.capped_uf_hooks']}; round span device s "
+          f"{st['cluster.capped.round.device_s']:.4f}, member span device s "
+          f"{st['cluster.capped.member.device_s']:.4f}, friends span "
+          f"device s {st['cluster.capped.friends.device_s']:.4f}",
+          flush=True)
+    return {"name": "friend_components", "route": "cuda",
+            "source": "hash10x_tpu_torch/csrc/friend_components.cu",
+            "replaces": None, "launches": FC.LAUNCHES,
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "device_ms": device_ms, "bound_share": bound_ms / device_ms}
+
+
 def run_only(torch, MK, ES, run, only):
-    """``--only 15,16,17,18,21,23,24,25,26,27,28``: after the build, only the
-    phases named (15-18 and 21 after phase 4)."""
+    """``--only 15,16,17,18,21,23,24,25,26,27,28,29``: after the build, only
+    the phases named (15-18 and 21 after phase 4)."""
     from hash10x_tpu_torch.bench import make_barcodes_lane
     kernels = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -2949,7 +3055,11 @@ def run_only(torch, MK, ES, run, only):
         if 27 in only:
             kernels.append(phase_propagate(torch, run, tmp))
         if 28 in only:
-            kernels.append(phase_pair(torch, pair_slice_pass(torch)))
+            kernels.append(phase_pair(torch, slice_pass(
+                torch, PAIR_CELL, PAIR_SEED, "pair")))
+        if 29 in only:
+            kernels.append(phase_capped(torch, slice_pass(
+                torch, CAPPED_CELL, CAPPED_SEED, "capped")))
     if kernels:
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3055,8 +3165,12 @@ def main() -> int:
         elapsed("phase 26")
         union_find = phase_propagate(torch, run, tmp, uf_launches)
         elapsed("phase 27")
-        pair = phase_pair(torch, pair_slice_pass(torch))
+        pair = phase_pair(torch, slice_pass(torch, PAIR_CELL, PAIR_SEED,
+                                            "pair"))
         elapsed("phase 28")
+        capped = phase_capped(torch, slice_pass(torch, CAPPED_CELL,
+                                                CAPPED_SEED, "capped"))
+        elapsed("phase 29")
 
     kernels = [kernel_entry(
         "seqhash_sketch", launches, max(max_err, fuzz_err), *main_times,
@@ -3088,6 +3202,7 @@ def main() -> int:
         *crib[1:], (crib_rows, 1 << 15, (1 << 15) - K + 1, K, "kmer")))
     kernels.append(union_find)
     kernels.append(pair)
+    kernels.append(capped)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

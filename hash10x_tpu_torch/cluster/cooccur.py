@@ -17,12 +17,14 @@ holds rows of one padded width K.  Per batch:
    ``friends_table``); a k-mer and a friend link iff the friend is in the
    k-mer's list;
 3. the fixpoint of min-label propagation: each k-mer's label is the
-   smallest k-mer index of its component.  Pair mode on CUDA takes it from
-   one union-find pass over each row's S in the kernel of
-   ``kernels/pair_components.py``, which applies the threshold as it reads
-   S (no (B, K, K) adjacency, no host read); on the CPU, and in
-   capped-friend mode, rounds of a ``where`` and a ``min`` run to the
-   fixpoint, one host read a round;
+   smallest k-mer index of its component.  On CUDA one union-find pass
+   over each row in a kernel takes it: pair mode's
+   ``kernels/pair_components.py`` reads S and applies the threshold as it
+   goes (no (B, K, K) adjacency), capped-friend mode's
+   ``kernels/friend_components.py`` reads the (B, K, F) mask once (no
+   int64 (B, K, F) temporaries); neither reads anything back to the host.
+   On the CPU rounds of a ``where`` and a ``min`` run to the fixpoint, one
+   host read a round;
 4. canonical ranks: the number of distinct component labels below a
    k-mer's label, which is first-appearance numbering (oracle:
    ``hash10x_tpu/oracle/cluster_ref.py``).
@@ -51,14 +53,17 @@ batches' barcodes, n_c a barcode's k-mers: the cells that are not
 padding).  Capped-friend mode records ``cluster.capped.friends`` (one a
 pass: ``friends_table``, with ``cluster.cooccur`` inside it), and a batch
 each ``cluster.capped.member`` (``batch_lists``' gather and the (B, K, F)
-membership mask of ``_membership``) and ``cluster.capped.round`` (every
-round of ``_friend_rounds`` and the canonical ranks), each with stream
-seconds on CUDA, and the counters ``cluster.capped_rounds`` (rounds run,
-summed over the batches, the last, unchanged one of each included: one
-host read each), ``cluster.capped_cells`` (the B * K * F membership cells
-of the batches), ``cluster.capped_real_cells`` (the sum of n_c * f_c over
-the barcodes, f_c the friends in c's row: the cells that are not padding)
-and ``cluster.capped_cut`` (the barcodes that have more friends at the
+membership mask of ``_membership``) and ``cluster.capped.round`` (the
+propagation: on CUDA the kernel's one pass, on the CPU every round of
+``_friend_rounds``; and the canonical ranks), each with stream seconds on
+CUDA, and the counters ``cluster.capped_rounds`` (rounds run, summed over
+the batches: 1 a batch on CUDA, one pass; on the CPU each batch's rounds,
+the last, unchanged one included: one host read each),
+``cluster.capped_uf_hooks`` (the kernel's links, summed on the device; 0 on
+the CPU), ``cluster.capped_cells`` (the B * K * F membership cells of the
+batches), ``cluster.capped_real_cells`` (the sum of n_c * f_c over the
+barcodes, f_c the friends in c's row: the cells that are not padding) and
+``cluster.capped_cut`` (the barcodes that have more friends at the
 threshold than the cap keeps); the last two are summed on the device.
 
 The JAX package takes each batch's friends from a dense (B, n_codes) share
@@ -74,7 +79,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels import pair_components
+from ..kernels import friend_components, pair_components
 from ..table.incidence import Incidence
 from ..utils import timing
 
@@ -218,10 +223,11 @@ def _membership(cl: torch.Tensor, kmer_valid: torch.Tensor,
 
 
 def _friend_rounds(m: torch.Tensor, kmer_valid: torch.Tensor) -> tuple:
-    """Min-label rounds over the membership mask ``m`` (``_membership``)
-    to the fixpoint: k-mer labels to each friend's column minimum and
-    back.  Returns the labels (B, K) int64 (a pad's K) and the rounds
-    run."""
+    """The plain version of ``kernels/friend_components.py``, which CPU
+    tensors take: min-label rounds over the membership mask ``m``
+    (``_membership``) to the fixpoint, k-mer labels to each friend's column
+    minimum and back.  Returns the labels (B, K) int64 (a pad's K) and the
+    rounds run."""
     K = m.shape[1]
 
     def step(lab):
@@ -231,14 +237,29 @@ def _friend_rounds(m: torch.Tensor, kmer_valid: torch.Tensor) -> tuple:
     return _propagate(step, kmer_valid)
 
 
+def _friend_labels(m: torch.Tensor, kmer_valid: torch.Tensor) -> torch.Tensor:
+    """Canonical labels (B, K), pad rows -1, of the components of the
+    membership mask ``m`` (``_membership``).  CUDA tensors take the
+    friend-components kernel (one pass, no host read), CPU tensors the
+    plain rounds; both give the same labels."""
+    if m.device.type == "cpu":
+        lab, rounds = _friend_rounds(m, kmer_valid)
+        timing.add("cluster.capped_uf_hooks", 0)
+    else:
+        lab, hooks = friend_components.components(m, kmer_valid)
+        rounds = 1
+        timing.add_device("cluster.capped_uf_hooks", hooks)
+    timing.add("cluster.capped_rounds", rounds)
+    return _canonical(lab, kmer_valid)
+
+
 def friend_union_batch(cl: torch.Tensor, kmer_valid: torch.Tensor,
                        friends: torch.Tensor) -> torch.Tensor:
     """Components of the bipartite (k-mer, friend) graph of one padded
     batch: ``cl (B, K, C)`` ascending lists (-1 pad), ``friends (B, F)``
     (-1 pad).  A k-mer and a friend connect iff the friend's id is in the
     k-mer's list.  Returns canonical labels (B, K), pad rows -1."""
-    m = _membership(cl, kmer_valid, friends)
-    return _canonical(_friend_rounds(m, kmer_valid)[0], kmer_valid)
+    return _friend_labels(_membership(cl, kmer_valid, friends), kmer_valid)
 
 
 def _friends(cl: torch.Tensor, self_codes: torch.Tensor, n_codes: int,
@@ -429,10 +450,8 @@ def cluster_codes(inc: Incidence, min_share: int = 2, mode: str = "friend",
                 m = _membership(cl, valid, table[chunk])
                 del cl
             with timing.span("cluster.capped.round", device=True):
-                lab, rounds = _friend_rounds(m, valid)
-                labels = _canonical(lab, valid)
+                labels = _friend_labels(m, valid)
                 del m
-            timing.add("cluster.capped_rounds", rounds)
             timing.add("cluster.capped_cells", len(sel) * K * F)
         out[pos[valid]] = labels[valid]
     return out

@@ -79,8 +79,10 @@ rounds), ``cluster.pair_cells`` and ``cluster.pair_real_cells``.
 Capped-friend clustering (``max_friends > 0``) records
 ``cluster.capped.friends`` once, a batch each ``cluster.capped.member`` and
 ``cluster.capped.round``, and the counters ``cluster.capped_rounds``,
-``cluster.capped_cells``, ``cluster.capped_real_cells`` and
-``cluster.capped_cut`` (the last two summed on the device).  On CUDA,
+``cluster.capped_uf_hooks`` (the friend-components kernel's links, summed
+on the device; 0 on the CPU's rounds), ``cluster.capped_cells``,
+``cluster.capped_real_cells`` and ``cluster.capped_cut`` (the last three
+summed on the device).  On CUDA,
 ``table.flush``, ``cluster.cooccur``, ``cluster.edges``,
 ``cluster.round`` and the ``cluster.pair.*`` and ``cluster.capped.*``
 spans also give
