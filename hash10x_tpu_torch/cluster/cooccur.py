@@ -41,10 +41,11 @@ a TPU choice).
 
 Spans and counters (``utils/timing.py``, on the engine's timer while it
 clusters; none adds a synchronisation): pair mode records, a batch each,
-``cluster.pair.lists`` (``batch_lists``' gather), ``cluster.pair.support``
-(dense ranks, D and D @ D^T) and ``cluster.pair.round`` (the threshold and
-the propagation: on CUDA the kernel's one pass, on the CPU the adjacency
-and every round), each with stream seconds on CUDA, and the counters
+``cluster.pair.lists`` (``batch_lists``' gather, host clock only),
+``cluster.pair.support`` (dense ranks, D and D @ D^T) and
+``cluster.pair.round`` (the threshold and the propagation: on CUDA the
+kernel's one pass, on the CPU the adjacency and every round), the last two
+with stream seconds on CUDA, and the counters
 ``cluster.pair_rounds`` (rounds run, summed over the batches: 1 a batch on
 CUDA, one pass), ``cluster.pair_uf_hooks`` (the kernel's links, summed on
 the device; 0 on the CPU), ``cluster.pair_cells`` (the B * K * K support
@@ -65,6 +66,13 @@ batches), ``cluster.capped_real_cells`` (the sum of n_c * f_c over the
 barcodes, f_c the friends in c's row: the cells that are not padding) and
 ``cluster.capped_cut`` (the barcodes that have more friends at the
 threshold than the cap keeps); the last two are summed on the device.
+Host waits (``timing.wait``): a batch each, its barcode ids sent to the
+device and the two selections that put its labels in place
+(``wait.cluster.batch``, three), in pair mode the read of its rank count
+(``wait.cluster.pair.ranks``); on the CPU a round each
+(``wait.cluster.rounds``); and the friend table's selections and reads
+(``wait.cluster.capped.friends``) and the batch plan's reads
+(``wait.cluster.batches``) once a pass.
 
 The JAX package takes each batch's friends from a dense (B, n_codes) share
 row and a ``top_k`` over it (``_friends`` here, kept as the reference the
@@ -100,14 +108,17 @@ def _size_class(n: int) -> int:
 
 def _propagate(step, valid: torch.Tensor) -> tuple:
     """Iterate ``lab <- step(lab)`` from each valid row's own index (pads
-    hold K) until nothing changes; one host sync per round.  Returns the
+    hold K) until nothing changes; one host wait per round
+    (``wait.cluster.rounds``, under the mode's round span).  Returns the
     labels and the rounds run."""
     B, K = valid.shape
     lab = torch.where(valid, torch.arange(K, device=valid.device), K)
     rounds = 1
     while True:
         new = step(lab)
-        if torch.equal(new, lab):
+        with timing.wait("cluster.rounds"):
+            same = torch.equal(new, lab)
+        if same:
             return lab, rounds
         lab = new
         rounds += 1
@@ -139,7 +150,8 @@ def _support(cl: torch.Tensor, max_bytes: int) -> torch.Tensor:
     ranks = torch.empty_like(ranks_s).scatter_(1, order, ranks_s)
     ranks = torch.where(pad, 0, ranks).reshape(B, K, C)
     real = (~pad).reshape(B, K, C).to(torch.float32)
-    U = int(ranks.max()) + 1
+    with timing.wait("cluster.pair.ranks"):
+        U = int(ranks.max()) + 1
     s = torch.empty((B, K, K), dtype=torch.float32, device=cl.device)
     sub = max(1, max_bytes // (4 * K * U))
     for a in range(0, B, sub):
@@ -300,24 +312,34 @@ def friends_table(inc: Incidence, thr: int, max_friends: int,
     code, friend = torch.cat([c1, c2]), torch.cat([c2, c1])
     share = torch.cat([shares, shares])
     ok = share >= thr
-    code, friend, share = code[ok], friend[ok], share[ok]
+    with timing.wait("cluster.capped.friends", 3):
+        code, friend, share = code[ok], friend[ok], share[ok]
     # (code, friend) ascending, then stable by share descending and by code
     o = torch.argsort(code * n + friend)
     o = o[torch.argsort(-share[o], stable=True)]
     o = o[torch.argsort(code[o], stable=True)]
     code, friend = code[o], friend[o]
     STATS["friend_keys"] = code.shape[0]
-    per_code = torch.bincount(code, minlength=n)
+    with timing.wait("cluster.capped.friends", 2 if code.numel() else 0):
+        per_code = torch.bincount(code, minlength=n)
     rank = torch.arange(code.shape[0], device=dev) \
         - (torch.cumsum(per_code, 0) - per_code)[code]
     keep = rank < F
     kept = torch.clamp(per_code, max=F)
     timing.add_device("cluster.capped_cut", (per_code > F).sum())
-    W = F if pad or thr <= 0 else max(1, int(kept.max()) if n else 1)
+    W = F
+    if not (pad or thr <= 0):
+        W = 1
+        if n:
+            with timing.wait("cluster.capped.friends"):
+                W = max(1, int(kept.max()))
     table = torch.full((n, W), -1, dtype=torch.int64, device=dev)
-    table[code[keep], rank[keep]] = friend[keep]
+    with timing.wait("cluster.capped.friends", 3):
+        table[code[keep], rank[keep]] = friend[keep]
     if thr <= 0:
-        _fill_zero_share(table, kept, code[keep], friend[keep])
+        with timing.wait("cluster.capped.friends", 2):
+            code, friend = code[keep], friend[keep]
+        _fill_zero_share(table, kept, code, friend)
     return table
 
 
@@ -336,11 +358,14 @@ def _fill_zero_share(table: torch.Tensor, kept: torch.Tensor,
         b = min(a + rows, n)
         sel = near & (code >= a) & (code < b)
         taken = torch.zeros((b - a, R), dtype=torch.bool, device=table.device)
-        taken[code[sel] - a, friend[sel]] = True
+        # the selections, then True sent
+        with timing.wait("cluster.capped.friends", 3):
+            taken[code[sel] - a, friend[sel]] = True
         free = ~taken
         slot = kept[a:b, None] + torch.cumsum(free.to(torch.int64), 1) - 1
         put = free & (slot < W)
-        r, ids = torch.nonzero(put, as_tuple=True)
+        with timing.wait("cluster.capped.friends"):
+            r, ids = torch.nonzero(put, as_tuple=True)
         table[a + r, slot[r, ids]] = ids
 
 
@@ -394,8 +419,9 @@ def _batches(inc: Incidence, mode: str, F: int = 0,
     list_lens = torch.diff(inc.kmer_offsets)
     longest = torch.zeros(inc.n_codes, dtype=torch.int64, device=inc.device)
     longest.scatter_reduce_(0, code_of, list_lens[inc.code_kmers], "amax")
-    sizes = torch.diff(inc.code_offsets).cpu().numpy()
-    longest = longest.cpu().numpy()
+    with timing.wait("cluster.batches", 2):
+        sizes = torch.diff(inc.code_offsets).cpu().numpy()
+        longest = longest.cpu().numpy()
     order = np.argsort(sizes, kind="stable")
     active = order[sizes[order] > 0]
     kcs = np.array([_size_class(int(n)) for n in sizes[active]])
@@ -434,11 +460,13 @@ def cluster_codes(inc: Incidence, min_share: int = 2, mode: str = "friend",
         timing.add_device("cluster.capped_real_cells",
                           (torch.diff(inc.code_offsets)
                            * (table >= 0).sum(1)).sum())
-    sizes = torch.diff(inc.code_offsets).cpu().numpy()
+    with timing.wait("cluster.batches"):
+        sizes = torch.diff(inc.code_offsets).cpu().numpy()
     for K, C, sel in _batches(inc, mode, F, max_batch_bytes):
-        chunk = torch.from_numpy(sel).to(dev)
+        with timing.wait("cluster.batch"):
+            chunk = torch.from_numpy(sel).to(dev)
         if mode == "pair":
-            with timing.span("cluster.pair.lists", device=True):
+            with timing.span("cluster.pair.lists"):
                 pos, valid, cl = batch_lists(inc, chunk, K, C)
             labels = cluster_batch(cl, valid, min_share, max_batch_bytes)
             timing.add("cluster.pair_cells", len(sel) * K * K)
@@ -453,5 +481,6 @@ def cluster_codes(inc: Incidence, min_share: int = 2, mode: str = "friend",
                 labels = _friend_labels(m, valid)
                 del m
             timing.add("cluster.capped_cells", len(sel) * K * F)
-        out[pos[valid]] = labels[valid]
+        with timing.wait("cluster.batch", 2):
+            out[pos[valid]] = labels[valid]
     return out

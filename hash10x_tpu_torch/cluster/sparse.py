@@ -79,17 +79,21 @@ class _ShiftJoin:
         sl = lens[order]
         new_off = torch.cat([sl.new_zeros(1), torch.cumsum(sl, 0)])
         starts = inc.kmer_offsets[:-1][order]
-        self.pos_old = (torch.arange(inc.n_pairs, device=dev)
-                        - torch.repeat_interleave(new_off[:-1], sl)
-                        + torch.repeat_interleave(starts, sl))
-        self.codes = inc.kmer_codes[self.pos_old]
-        self.seg = torch.repeat_interleave(
-            torch.arange(sl.shape[0], device=dev), sl)
+        with timing.wait("cluster.shift_join", 6):
+            self.pos_old = (torch.arange(inc.n_pairs, device=dev)
+                            - torch.repeat_interleave(new_off[:-1], sl)
+                            + torch.repeat_interleave(starts, sl))
+            self.codes = inc.kmer_codes[self.pos_old]
+            self.seg = torch.repeat_interleave(
+                torch.arange(sl.shape[0], device=dev), sl)
         # entries in lists of each length L, summed over lengths >= L: only
         # this (max length + 1)-long vector crosses to the host
-        per_len = torch.bincount(lens)
+        with timing.wait("cluster.shift_join", 2 if lens.numel() else 0):
+            per_len = torch.bincount(lens)
         per_len = per_len * torch.arange(per_len.shape[0], device=dev)
-        self._at_least = torch.cumsum(per_len.flip(0), 0).flip(0).cpu().numpy()
+        with timing.wait("cluster.shift_join"):
+            self._at_least = torch.cumsum(per_len.flip(0), 0).flip(0) \
+                .cpu().numpy()
         self.D = len(self._at_least) - 1  # longest list
 
     def b(self, d: int) -> int:
@@ -101,7 +105,8 @@ class _ShiftJoin:
         """(c1, c2, i): every same-list pair at distance d, as codes and the
         length-ordered index i of c1 (c2 sits at i + d)."""
         b = self.b(d)
-        i = torch.nonzero(self.seg[:b - d] == self.seg[d:b]).squeeze(1)
+        with timing.wait("cluster.shift_join"):
+            i = torch.nonzero(self.seg[:b - d] == self.seg[d:b]).squeeze(1)
         return self.codes[i], self.codes[i + d], i
 
 
@@ -143,7 +148,8 @@ def friend_pairs(pair_keys: torch.Tensor, shares: torch.Tensor,
                  min_friend_share: int) -> torch.Tensor:
     """The co-occurrence keys (c1 * n_codes + c2) whose share is at least
     ``min_friend_share``, in their order."""
-    return pair_keys[shares >= min_friend_share]
+    with timing.wait("cluster.friends"):
+        return pair_keys[shares >= min_friend_share]
 
 
 def friend_keys(keys: torch.Tensor, shares: torch.Tensor, n_codes: int,
@@ -161,9 +167,10 @@ def _forward_positions(inc: Incidence) -> torch.Tensor:
     dense rank of its (code, kmer) key when the instance was hand-built)."""
     if inc.inv2fwd is not None:
         return inc.inv2fwd
-    kmer_of_i = torch.repeat_interleave(
-        torch.arange(inc.n_kmers, device=inc.device),
-        torch.diff(inc.kmer_offsets))
+    with timing.wait("cluster.edges", 2):
+        kmer_of_i = torch.repeat_interleave(
+            torch.arange(inc.n_kmers, device=inc.device),
+            torch.diff(inc.kmer_offsets))
     return device_dense_ranks(inc.kmer_codes * inc.n_kmers + kmer_of_i)
 
 
@@ -179,8 +186,9 @@ def _edges(sj: _ShiftJoin, inc: Incidence, fkeys: torch.Tensor):
         r1 = torch.clamp(torch.searchsorted(fkeys, key), max=n_f - 1)
         hit = fkeys[r1] == key
         r2 = torch.searchsorted(fkeys, c2 * nc + c1)
-        p_parts += [p_ord[i[hit]], p_ord[i[hit] + d]]
-        f_parts += [r1[hit], r2[hit]]
+        with timing.wait("cluster.edges", 4):
+            p_parts += [p_ord[i[hit]], p_ord[i[hit] + d]]
+            f_parts += [r1[hit], r2[hit]]
     if not p_parts:
         empty = fkeys.new_zeros(0)
         return empty, empty
@@ -223,7 +231,9 @@ def _rounds(p_e, f_e, n_p: int, n_f: int, edge_block: int):
         STATS["rounds"] += 1
         with timing.span("cluster.round", device=True):
             new = _round(p_e, f_e, lab, n_p, n_f, edge_block)
-            if torch.equal(new, lab):
+            with timing.wait("cluster.round"):
+                same = torch.equal(new, lab)
+            if same:
                 return lab
         lab = new
 
@@ -250,7 +260,8 @@ def canonical_ranks(inc: Incidence, labels: torch.Tensor) -> torch.Tensor:
     is first-appearance order)."""
     if inc.n_pairs == 0:
         return labels
-    K = int(labels.max()) + 1
+    with timing.wait("cluster.canonical"):
+        K = int(labels.max()) + 1
     base = inc.code_of_pair() * K
     combined = base + labels
     timing.add("sorted_keys", combined.shape[0])

@@ -91,7 +91,8 @@ class _ShardedShiftJoin:
                  with_positions: bool = False):
         n = group.n_shards
         self.n = n
-        lens = torch.diff(inc.kmer_offsets).cpu().numpy()
+        with timing.wait("cluster.shift_join"):
+            lens = torch.diff(inc.kmer_offsets).cpu().numpy()
         order = np.argsort(-lens, kind="stable")
         per = [order[s::n] for s in range(n)]   # descending within a shard
         self.sls = [lens[p] for p in per]
@@ -106,16 +107,20 @@ class _ShardedShiftJoin:
         self.codes, self.seg, self.pos = [], [], []
         pad = torch.zeros(self.W, dtype=torch.int64, device=dev)
         for s in range(group.lo, group.hi):
-            sl = torch.from_numpy(self.sls[s]).to(dev)
-            cum = torch.from_numpy(self.cums[s]).to(dev)
-            starts = starts_all[torch.from_numpy(per[s]).to(dev)]
+            with timing.wait("cluster.shift_join", 3):
+                sl = torch.from_numpy(self.sls[s]).to(dev)
+                cum = torch.from_numpy(self.cums[s]).to(dev)
+                idx = torch.from_numpy(per[s]).to(dev)
+            starts = starts_all[idx]
             npair = int(self.cums[s][-1])
-            pos_old = (torch.arange(npair, device=dev)
-                       - torch.repeat_interleave(cum[:-1], sl)
-                       + torch.repeat_interleave(starts, sl))
+            with timing.wait("cluster.shift_join", 6):
+                pos_old = (torch.arange(npair, device=dev)
+                           - torch.repeat_interleave(cum[:-1], sl)
+                           + torch.repeat_interleave(starts, sl))
+                seg = torch.repeat_interleave(
+                    torch.arange(sl.shape[0], device=dev), sl)
             self.codes.append(torch.cat([inc.kmer_codes[pos_old], pad]))
-            self.seg.append(torch.cat([torch.repeat_interleave(
-                torch.arange(sl.shape[0], device=dev), sl), pad - 1]))
+            self.seg.append(torch.cat([seg, pad - 1]))
             self.pos.append(torch.cat([fwd[pos_old], pad])
                             if fwd is not None else None)
 
@@ -253,7 +258,8 @@ def _cooccur_table(inc, group: ShardGroup, chunk: int):
             drops += drop
             # only the keys go on into the tables: the lanes are mostly pads
             real = recv != INT64_MAX
-            got = torch.split(recv[real], real.sum(dim=1).tolist())
+            with timing.wait("cluster.cooccur", 2):
+                got = torch.split(recv[real], real.sum(dim=1).tolist())
             for i in range(nl):
                 tables[i] = st.append(tables[i], got[i])
         if SS.host_sum(group, drops):
@@ -280,7 +286,8 @@ def _gather_rows(group: ShardGroup, rows: List[torch.Tensor], pad: int):
     """Every shard's 1-D rows, concatenated in shard order, pads dropped."""
     g = group.all_gather_rows(group.stack_padded(rows, pad), pad=pad)
     g = g.reshape(-1)
-    return g[g != pad]
+    with timing.wait("cluster.friends"):
+        return g[g != pad]
 
 
 def friend_keys_dist(inc, group: ShardGroup, min_friend_share: int,
@@ -296,7 +303,8 @@ def friend_keys_dist(inc, group: ShardGroup, min_friend_share: int,
         kept = []
         for t in tables:
             h, c = st.compact(t)
-            kept.append(h[c >= min_friend_share])
+            with timing.wait("cluster.friends"):
+                kept.append(h[c >= min_friend_share])
         del tables
         k1 = _gather_rows(group, kept, INT64_MAX)
         nc = inc.n_codes
@@ -317,7 +325,8 @@ def cooccurrence_counts_dist(inc, group: ShardGroup, chunk: int = _CHUNK):
     c = group.all_gather_rows(group.stack_padded(
         [p[1].to(torch.int64) for p in parts], -1), pad=-1).reshape(-1)
     h, order = torch.sort(h)
-    return h, c[c >= 0][order]
+    with timing.wait("cluster.friends"):
+        return h, c[c >= 0][order]
 
 
 def _edge_blocks(sj, group: ShardGroup, fkeys, n_codes: int,
@@ -337,13 +346,16 @@ def _edge_blocks(sj, group: ShardGroup, fkeys, n_codes: int,
             b = sj.b(s, d)
             if b <= d:
                 break
-            j = torch.nonzero(seg[:b - d] == seg[d:b]).squeeze(1)
+            with timing.wait("cluster.edges"):
+                j = torch.nonzero(seg[:b - d] == seg[d:b]).squeeze(1)
             c1, c2 = codes[j], codes[j + d]
             key = c1 * n_codes + c2
             r1 = torch.clamp(torch.searchsorted(fkeys, key), max=n_f - 1)
             hit = fkeys[r1] == key
-            j, r1 = j[hit], r1[hit]
-            r2 = torch.searchsorted(fkeys, c2[hit] * n_codes + c1[hit])
+            with timing.wait("cluster.edges", 4):
+                j, r1 = j[hit], r1[hit]
+                c1, c2 = c1[hit], c2[hit]
+            r2 = torch.searchsorted(fkeys, c2 * n_codes + c1)
             del c1, c2, key, hit
             held.append((torch.cat([pos[j], pos[j + d]]),
                          torch.cat([r1, r2])))
@@ -400,9 +412,12 @@ def _propagate(group: ShardGroup, edges, n_p: int, n_f: int
             del part_p
             new = torch.minimum(new, new[new])   # pointer jump x2 (labels
             new = torch.minimum(new, new[new])   # are held whole)
-            changed = group.all_reduce(
-                one * bool((new != lab).any()), "max")
-        if not int(changed[0]):
+            with timing.wait("cluster.round"):
+                moved = bool((new != lab).any())
+            changed = group.all_reduce(one * moved, "max")
+            with timing.wait("cluster.round"):
+                changed = int(changed[0])
+        if not changed:
             return new
         lab = new
 
@@ -444,7 +459,8 @@ def _propagate_blocks(inc, group: ShardGroup, edges, n_f: int, target: int,
     vector."""
     offs = inc.code_offsets
     if torch.is_tensor(offs):
-        offs = offs.cpu().numpy()
+        with timing.wait("cluster.blocks"):
+            offs = offs.cpu().numpy()
     dev = group.device
     if sharded_out:
         glab = [torch.zeros(k.shape[0], dtype=torch.int64, device=dev)
@@ -458,7 +474,8 @@ def _propagate_blocks(inc, group: ShardGroup, edges, n_f: int, target: int,
         for shard in edges:
             mine.append([])
             for p, f in shard:
-                j = torch.nonzero((p >= p0) & (p < p1)).squeeze(1)
+                with timing.wait("cluster.blocks"):
+                    j = torch.nonzero((p >= p0) & (p < p1)).squeeze(1)
                 if j.shape[0]:
                     mine[-1].append((p[j] - p0, f[j]))
         lab = p0 + _propagate(group, mine, p1 - p0, n_f)
@@ -526,5 +543,6 @@ def cluster_codes_sparse_dist(inc, group: ShardGroup,
         canon = _local_canon(inc, lab)
     if flat:
         return canon
-    offs = inc.code_offsets.tolist()
+    with timing.wait("clusters"):
+        offs = inc.code_offsets.tolist()
     return [canon[offs[c]:offs[c + 1]] for c in range(inc.n_codes)]

@@ -37,6 +37,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import timing
+
 __all__ = ["ShardGroup"]
 
 _OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
@@ -187,6 +189,9 @@ class ShardGroup:
 
     def gather_counts(self, local_counts) -> np.ndarray:
         """``(n,)`` int64 host array of one number per shard."""
-        t = torch.tensor([[int(c)] for c in local_counts], dtype=torch.int64,
-                         device=self.device)
-        return self.all_gather_rows(t).reshape(-1).cpu().numpy()
+        with timing.wait("shard.counts"):
+            t = torch.tensor([[int(c)] for c in local_counts],
+                             dtype=torch.int64, device=self.device)
+        t = self.all_gather_rows(t).reshape(-1)
+        with timing.wait("shard.counts"):
+            return t.cpu().numpy()

@@ -79,9 +79,11 @@ def _route_sorted(group: ShardGroup, rows: List[torch.Tensor],
         timing.add("sorted_keys", recv[0][i].shape[0])
         k, order = torch.sort(recv[0][i])
         real = k != INT64_MAX
-        out_k.append(k[real])
+        with timing.wait("shard.route"):
+            out_k.append(k[real])
         if payload is not None:
-            out_p.append(recv[1][i][order][real])
+            with timing.wait("shard.route"):
+                out_p.append(recv[1][i][order][real])
     return out_k, out_p
 
 
@@ -110,11 +112,16 @@ def build_sharded_incidence(dt: SS.ShardedSortedTable, n_kmers: int,
     g = dt.group
     dt.flush()
     runs = [dt.local_compact(i)[0] for i in range(g.n_local)]
-    fill = torch.tensor([[max([0] + [int(r.shape[0]) for r in runs])]],
-                        device=g.device)
-    b1 = _pow2(max(int(g.all_reduce(fill, "max")[0]), 1))
+    with timing.wait("shard.incidence"):
+        fill = torch.tensor([[max([0] + [int(r.shape[0]) for r in runs])]],
+                            device=g.device)
+    fill = g.all_reduce(fill, "max")
+    with timing.wait("shard.incidence"):
+        b1 = _pow2(max(int(fill[0]), 1))
     bounds = SS.code_range_bounds(n_codes, g.n_shards)
-    splitters = torch.from_numpy(bounds[1:-1] * max(n_kmers, 1)).to(g.device)
+    with timing.wait("shard.incidence"):
+        splitters = torch.from_numpy(bounds[1:-1] * max(n_kmers, 1)) \
+            .to(g.device)
     keys, _ = _route_with_retry(g, runs, splitters, b1,
                                 "incidence redistribution")
     return ShardedIncidence(g, keys, g.gather_counts(
@@ -165,7 +172,9 @@ class ShardedIncidence:
             c = torch.arange(ncpad, device=g.device) + int(cb[s])
             per.append(torch.searchsorted(k, c * nk)
                        + int(self.pair_offsets[s]))
-        per = g.all_gather_rows(torch.stack(per)).cpu().numpy()
+        per = g.all_gather_rows(torch.stack(per))
+        with timing.wait("shard.incidence"):
+            per = per.cpu().numpy()
         out = np.zeros(self.n_codes + 1, np.int64)
         for s in range(self.n):
             c0, c1 = int(cb[s]), int(cb[s + 1])
@@ -178,7 +187,8 @@ class ShardedIncidence:
         rows = self.group.all_gather_rows(
             self.group.stack_padded(self.keys, INT64_MAX), pad=INT64_MAX)
         h = rows.reshape(-1)
-        return h[h != INT64_MAX]
+        with timing.wait("shard.gather"):
+            return h[h != INT64_MAX]
 
     def to_host(self) -> Incidence:
         """The whole double-CSR Incidence on this process's device (the name
@@ -194,7 +204,9 @@ class ShardedIncidence:
         g = self.group
         nk, nc = max(self.n_kmers, 1), max(self.n_codes, 1)
         self.kmer_bounds = SS.code_range_bounds(self.n_kmers, self.n)
-        ksplit = torch.from_numpy(self.kmer_bounds[1:-1] * nc).to(g.device)
+        with timing.wait("shard.incidence"):
+            ksplit = torch.from_numpy(self.kmer_bounds[1:-1] * nc) \
+                .to(g.device)
         key2, pos = [], []
         for i, k in enumerate(self.keys):
             timing.add("sorted_keys", k.shape[0])
@@ -202,10 +214,13 @@ class ShardedIncidence:
             key2.append(k2)
             pos.append(int(self.pair_offsets[g.lo + i])
                        + order)
-        width = torch.tensor([[max([1] + [int(k.shape[0])
-                                           for k in self.keys])]],
-                             device=g.device)
-        full = _pow2(max(int(g.all_reduce(width, "max")[0]), 8))
+        with timing.wait("shard.incidence"):
+            width = torch.tensor([[max([1] + [int(k.shape[0])
+                                               for k in self.keys])]],
+                                 device=g.device)
+        width = g.all_reduce(width, "max")
+        with timing.wait("shard.incidence"):
+            full = _pow2(max(int(width[0]), 8))
         self.inv_keys, self.inv_pos = _route_with_retry(
             g, key2, ksplit, full, "incidence transpose", payload=pos)
 
@@ -222,21 +237,32 @@ class ShardedIncidence:
         nc = max(self.n_codes, 1)
         lens_of, D_local = [], 0
         for k2 in self.inv_keys:
-            _, run = torch.unique_consecutive(k2 // nc, return_counts=True)
+            with timing.wait("cluster.shift_join"):
+                _, run = torch.unique_consecutive(k2 // nc,
+                                                  return_counts=True)
             lens_of.append(run)
             if run.shape[0]:
-                D_local = max(D_local, int(run.max()))
-        D = int(g.all_reduce(torch.tensor([[D_local]], device=g.device),
-                             "max")[0])
+                with timing.wait("cluster.shift_join"):
+                    D_local = max(D_local, int(run.max()))
+        with timing.wait("cluster.shift_join"):
+            D = torch.tensor([[D_local]], device=g.device)
+        D = g.all_reduce(D, "max")
+        with timing.wait("cluster.shift_join"):
+            D = int(D[0])
         if D <= 0:
             return None
-        Pi = int(g.all_reduce(torch.tensor(
-            [[max([1] + [int(k.shape[0]) for k in self.inv_keys])]],
-            device=g.device), "max")[0])
+        with timing.wait("cluster.shift_join"):
+            Pi = torch.tensor(
+                [[max([1] + [int(k.shape[0]) for k in self.inv_keys])]],
+                device=g.device)
+        Pi = g.all_reduce(Pi, "max")
+        with timing.wait("cluster.shift_join"):
+            Pi = int(Pi[0])
         W = min(_pow2(max(Pi, 1)), max(_pow2(max_window), _pow2(4 * D)))
         codes, seg, pos, hist = [], [], [], []
         for k2, p, run in zip(self.inv_keys, self.inv_pos, lens_of):
-            ln = torch.repeat_interleave(run, run)
+            with timing.wait("cluster.shift_join", 2):
+                ln = torch.repeat_interleave(run, run)
             # stable by length descending keeps key order inside a length
             timing.add("sorted_keys", ln.shape[0])
             order = torch.argsort(D - ln, stable=True)
@@ -249,8 +275,11 @@ class ShardedIncidence:
             seg.append(torch.cat([torch.cumsum(new.to(torch.int64), 0) - 1,
                                   pad_l - 1]))
             pos.append(torch.cat([p[order], pad_l]))
-            hist.append(torch.bincount(lns, minlength=D + 1)[:D + 1])
-        hist = g.all_gather_rows(torch.stack(hist)).cpu().numpy()
+            with timing.wait("cluster.shift_join", 2 if lns.numel() else 0):
+                hist.append(torch.bincount(lns, minlength=D + 1)[:D + 1])
+        hist = g.all_gather_rows(torch.stack(hist))
+        with timing.wait("cluster.shift_join"):
+            hist = hist.cpu().numpy()
         Ds = [int(np.nonzero(hist[s])[0].max(initial=0))
               for s in range(self.n)]
         return codes, seg, pos, hist, W, Ds
@@ -297,15 +326,17 @@ class ShardedLabels:
         uniq, cnt = [], []
         for i in range(g.n_local):
             timing.add("sorted_keys", inc_sh.keys[i].shape[0])
-            u, c = torch.unique(self._comb(inc_sh, i, K), sorted=True,
-                                return_counts=True)
+            comb = self._comb(inc_sh, i, K)
+            with timing.wait("shard.molecules"):
+                u, c = torch.unique(comb, sorted=True, return_counts=True)
             uniq.append(u)
             cnt.append(c)
         u = g.all_gather_rows(g.stack_padded(uniq, INT64_MAX), pad=INT64_MAX)
         c = g.all_gather_rows(g.stack_padded(cnt, 0), pad=0)
         u, c = u.reshape(-1), c.reshape(-1)
         real = u != INT64_MAX
-        u, c = u[real].cpu().numpy(), c[real].cpu().numpy()
+        with timing.wait("shard.molecules", 4):
+            u, c = u[real].cpu().numpy(), c[real].cpu().numpy()
         self._mol_inc = inc_sh
         self._mol_per = None
         self._mol_stats = (u // K, u % K, c)
@@ -316,9 +347,12 @@ class ShardedLabels:
         if self._mol_per is not None and self._mol_inc is inc_sh:
             return self._mol_per
         K = self._K()
-        per = self.group.gather_counts(
-            [torch.unique(self._comb(inc_sh, i, K)).shape[0]
-             for i in range(self.group.n_local)])
+        n = []
+        for i in range(self.group.n_local):
+            comb = self._comb(inc_sh, i, K)
+            with timing.wait("shard.molecules"):
+                n.append(torch.unique(comb).shape[0])
+        per = self.group.gather_counts(n)
         if self._mol_inc is not inc_sh:
             self._mol_stats = None
         self._mol_inc, self._mol_per = inc_sh, per
@@ -339,8 +373,9 @@ def split_sharded(inc_sh: ShardedIncidence, labels_sh: ShardedLabels
     new_keys = []
     for i, k in enumerate(inc_sh.keys):
         timing.add("sorted_keys", 2 * k.shape[0])   # unique, then sort
-        _, rank = torch.unique(labels_sh._comb(inc_sh, i, K), sorted=True,
-                               return_inverse=True)
+        comb = labels_sh._comb(inc_sh, i, K)
+        with timing.wait("split"):
+            _, rank = torch.unique(comb, sorted=True, return_inverse=True)
         new_keys.append(torch.sort((int(moff[g.lo + i]) + rank) * nk
                                    + k % nk).values)
     return ShardedIncidence(g, new_keys, inc_sh.pair_counts, inc_sh.n_kmers,
@@ -370,9 +405,12 @@ def canon_labels_sharded(inc_sh: ShardedIncidence, lab,
         combined = first * K + local
         base = first * K
         timing.add("sorted_keys", P)
-        u, inv = torch.unique(combined, sorted=True, return_inverse=True)
+        with timing.wait("cluster.canonical"):
+            u, inv = torch.unique(combined, sorted=True, return_inverse=True)
         canon.append(inv - torch.searchsorted(u, base))
         n_mol += u.shape[0]
-    total = SS.host_sum(g, torch.tensor([n_mol] + [0] * (g.n_local - 1),
-                                        device=g.device))
+    with timing.wait("cluster.canonical"):
+        total = torch.tensor([n_mol] + [0] * (g.n_local - 1),
+                             device=g.device)
+    total = SS.host_sum(g, total)
     return ShardedLabels(g, canon, inc_sh.pair_counts, total)

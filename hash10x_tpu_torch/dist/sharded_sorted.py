@@ -197,14 +197,16 @@ class ShardedSortedTable:
 
     def capacity(self) -> int:
         """The largest shard capacity of every process (a collective)."""
-        c = torch.tensor([[max(r.capacity for r in self.rows)]],
-                         device=self.group.device)
-        return int(self.group.all_reduce(c, "max")[0])
+        with timing.wait("shard.table", 2):
+            c = torch.tensor([[max(r.capacity for r in self.rows)]],
+                             device=self.group.device)
+            return int(self.group.all_reduce(c, "max")[0])
 
     def n_filled(self) -> int:
         """Real keys over every shard (a collective; flush first)."""
-        c = torch.tensor([sum(r.n_filled for r in self.rows)],
-                         device=self.group.device)
+        with timing.wait("shard.table"):
+            c = torch.tensor([sum(r.n_filled for r in self.rows)],
+                             device=self.group.device)
         return host_sum(self.group, c)
 
 
@@ -258,9 +260,10 @@ class SortedCountStep:
         self.routing = "low" if self.pair else "range"
         self.range_eff = emit_dist_eff(spec, mode)
         split = range_splitters(spec, n, self.range_eff)
-        self.splitters = torch.from_numpy(split).to(dev)
-        self.bounds = torch.cat([self.splitters, torch.tensor(
-            [INT64_MAX], dtype=torch.int64, device=dev)])
+        with timing.wait("shard.step", 2):
+            self.splitters = torch.from_numpy(split).to(dev)
+            top = torch.tensor([INT64_MAX], dtype=torch.int64, device=dev)
+        self.bounds = torch.cat([self.splitters, top])
         if pair_retained_sharded is not None:
             rows, off, n_kmers = pair_retained_sharded
             self.ret_rows = list(rows)
@@ -270,12 +273,16 @@ class SortedCountStep:
             # shard the retained set by the count table's splitters: each
             # range owner holds only its slice, whose local rank plus the
             # shard offset is the canonical global k-mer id
-            ret = pair_retained[pair_retained != INT64_MAX]
+            with timing.wait("shard.step"):
+                ret = pair_retained[pair_retained != INT64_MAX]
             dest = torch.searchsorted(self.splitters, ret, right=True)
-            counts = torch.bincount(dest, minlength=n).cpu().numpy()
+            with timing.wait("shard.step", 3 if dest.numel() else 1):
+                counts = torch.bincount(dest, minlength=n).cpu().numpy()
             self.ret_off = np.concatenate([[0], np.cumsum(counts)])[:-1] \
                 .astype(np.int64)
-            self.ret_rows = [ret[dest == s] for s in range(group.lo, group.hi)]
+            with timing.wait("shard.step", group.n_local):
+                self.ret_rows = [ret[dest == s]
+                                 for s in range(group.lo, group.hi)]
             self.n_kmers = int(ret.shape[0])
         # real keys lie below 2**key_bits: hashes are 2k bits, pair keys
         # below n_codes * n_kmers
@@ -466,8 +473,9 @@ class SortedCountStep:
 
 def host_sum(group: ShardGroup, x: torch.Tensor) -> int:
     """Sum a tensor of this process's over every process (a collective)."""
-    return int(group.all_reduce(x.to(torch.int64).sum().reshape(1, 1),
-                                "sum")[0])
+    s = group.all_reduce(x.to(torch.int64).sum().reshape(1, 1), "sum")
+    with timing.wait("shard.host_sum"):
+        return int(s[0])
 
 
 def sorted_histogram(t: ShardedSortedTable, max_count: int = 256
@@ -475,7 +483,9 @@ def sorted_histogram(t: ShardedSortedTable, max_count: int = 256
     """The count histogram summed over the shards."""
     hists = torch.stack([st.count_histogram(r.hashes, r.counts, max_count)
                          for r in t.flush().rows])
-    return t.group.all_reduce(hists, "sum").cpu().numpy()
+    hists = t.group.all_reduce(hists, "sum")
+    with timing.wait("histogram"):
+        return hists.cpu().numpy()
 
 
 def gather_sorted_compact(t: ShardedSortedTable, min_count: int = 0,
@@ -492,7 +502,8 @@ def gather_sorted_compact(t: ShardedSortedTable, min_count: int = 0,
         keep &= c >= min_count
     if max_count:
         keep &= c <= max_count
-    h, c = h[keep], c[keep]
+    with timing.wait("shard.gather", 2):
+        h, c = h[keep], c[keep]
     if t.routing != "range":
         h, order = torch.sort(h, stable=True)
         c = c[order]

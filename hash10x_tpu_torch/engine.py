@@ -52,11 +52,16 @@ engine's stages), ``graph_captures`` (step shapes captured into CUDA
 graphs), ``sorted_keys``
 (elements put through the main path's device sorts, the lane's barcode
 sort included), ``lane_bytes`` (the bytes of the barcode-sorted lane on the
-device) and ``lane_staged_bytes`` (lane bytes sent through the pinned
-staging buffers: the file-order lane on CUDA, 0 on the CPU); and for each
-span name N, ``N.host_s`` and ``N.n``.  The spans, on the host clock:
-``count``, ``incidence``, ``cluster``, ``split`` and ``report`` around those
-stages; ``lane`` (its children ``lane.order``, the barcode ids sent in
+device), ``lane_staged_bytes`` (lane bytes sent through the pinned
+staging buffers: the file-order lane on CUDA, 0 on the CPU) and
+``host_waits`` (the times a command made the host wait for the device: a
+read of a device value, a shape that depends on device data, a copy
+between host and device that is not ``non_blocking``; each such statement
+is the span ``wait.<site>``, whose ``n`` counts its waits, under the span
+its work lies in); and for each span name N, ``N.host_s`` and ``N.n``.
+The spans, on the host clock: ``count``, ``filter``, ``incidence``,
+``cluster``, ``split``, ``report``, ``histogram`` and ``error_fix`` around
+those commands; ``lane`` (its children ``lane.order``, the barcode ids sent in
 file order, their stable sort on the device and each read's place in
 barcode order; ``lane.copy``, the reads' words, lengths and N masks sent
 in file order and put in those places on the device; ``lane.batches``,
@@ -84,8 +89,8 @@ on the device; 0 on the CPU's rounds), ``cluster.capped_cells``,
 ``cluster.capped_real_cells`` and ``cluster.capped_cut`` (the last three
 summed on the device).  On CUDA,
 ``table.flush``, ``cluster.cooccur``, ``cluster.edges``,
-``cluster.round`` and the ``cluster.pair.*`` and ``cluster.capped.*``
-spans also give
+``cluster.round``, ``cluster.pair.support``, ``cluster.pair.round`` and
+the ``cluster.capped.*`` spans also give
 ``N.device_s``: the stream's seconds between their marks.  The sharded paths (``n_shards > 1``) record the same names
 (``cluster.*`` from ``cluster/sparse_dist.py``), the span ``shard.route``
 (every routing outside a CUDA graph, with ``.device_s`` on CUDA) and three
@@ -130,7 +135,7 @@ __all__ = ["Engine", "EngineConfig", "coverage_peaks"]
 
 # the counters ``Engine.stats`` always holds (0 until counted)
 COUNTERS = ("dispatches", "flushes", "graph_captures", "sorted_keys",
-            "lane_bytes", "lane_staged_bytes")
+            "lane_bytes", "lane_staged_bytes", "host_waits")
 
 # the host-to-device staging of a lane (``_staged``): bytes a staging
 # buffer holds, and the buffers in the ring
@@ -332,8 +337,9 @@ class Engine:
         h = g.all_gather_rows(g.stack_padded(rows, INT64_MAX),
                               pad=INT64_MAX).reshape(-1)
         c = g.all_gather_rows(g.stack_padded(crows, -1), pad=-1).reshape(-1)
-        self._retained = h[h != INT64_MAX]
-        self._retained_counts = c[c >= 0]
+        with timing.wait("shard.gather", 2):
+            self._retained = h[h != INT64_MAX]
+            self._retained_counts = c[c >= 0]
 
     @property
     def inc(self) -> Optional[Incidence]:
@@ -376,7 +382,8 @@ class Engine:
         labels = self.cluster_labels
         if labels is None:
             return None
-        offs = self.inc.code_offsets.tolist()
+        with timing.wait("clusters"):
+            offs = self.inc.code_offsets.tolist()
         return [labels[offs[c]:offs[c + 1]] for c in range(len(offs) - 1)]
 
     @property
@@ -477,8 +484,11 @@ class Engine:
                         else _to_device(fqb.nmask, dev, dest))
                 del dest
             with timing.span("lane.batches"):
-                counts = torch.bincount(bcs + 1, minlength=1)
-                spans = self._batch_spans(counts.cpu().numpy(), bsz)
+                with timing.wait("lane.batches", 2 if bcs.numel() else 0):
+                    counts = torch.bincount(bcs + 1, minlength=1)
+                with timing.wait("lane.batches"):
+                    counts = counts.cpu().numpy()
+                spans = self._batch_spans(counts, bsz)
                 del counts
             timing.add("lane_bytes",
                        sum(x.nbytes for x in lane if x is not None))
@@ -631,7 +641,9 @@ class Engine:
         if gtab is not None:
             self._finish_group(gtab)
         self.table = st.flush_grow(self.table)
-        if int(overflow):
+        with timing.wait("count.overflow"):
+            overflow = int(overflow)
+        if overflow:
             self._raise_overflow("count")
         self.n_reads_counted += int((fqb.lengths > 0).sum())
         # the table grows instead of spilling: "spilled 0" keeps the JAX
@@ -669,12 +681,15 @@ class Engine:
         self.table = st.merge_counts(
             st.make_sorted_table(cap, cap, self.device), h, c)
 
+    @_span("histogram")
     def histogram(self, max_count: int = 256) -> np.ndarray:
         dt = self._sharded_table()
         if dt is not None:
             return DS.sorted_histogram(dt, max_count)
         t = self._flushed()
-        return st.count_histogram(t.hashes, t.counts, max_count).cpu().numpy()
+        hist = st.count_histogram(t.hashes, t.counts, max_count)
+        with timing.wait("histogram"):
+            return hist.cpu().numpy()
 
     def info(self, out=sys.stdout) -> None:
         hist = self.histogram()
@@ -716,6 +731,7 @@ class Engine:
              self._retained_counts, self.n_reads_counted,
              self.cfg.count_mode) = saved
 
+    @_span("error_fix")
     def error_fix(self, max_count: int = 1, fqb: Optional[Fqb] = None,
                   min_reads: int = 0) -> None:
         """Error-band correction (``--errorFix``): drop k-mers with count <=
@@ -751,6 +767,7 @@ class Engine:
                                        f"{min_reads} occurrences"
                                        if rescued else ""))
 
+    @_span("filter")
     def filter(self, min_count: int = 0, max_count: int = 0) -> None:
         """Keep the k-mers whose count lies in the band [lo, hi]."""
         lo = min_count or self.cfg.min_count
@@ -802,7 +819,9 @@ class Engine:
             keys, wts, over = self._step(steps, grp, **keying)
             overflow += over
             pt = st.append_pairs(pt, keys, wts)
-        if int(overflow):
+        with timing.wait("incidence.overflow"):
+            overflow = int(overflow)
+        if overflow:
             self._raise_overflow("incidence")
         pt = st.flush_grow(pt)
         pairs = pt.hashes[:pt.n_filled]
@@ -850,7 +869,8 @@ class Engine:
             per_code = torch.zeros(inc.n_codes, dtype=torch.int64,
                                    device=self.device)
             per_code.scatter_reduce_(0, inc.code_of_pair(), labels + 1, "amax")
-            n_cl = int(per_code.sum())
+            with timing.wait("cluster.molecules"):
+                n_cl = int(per_code.sum())
         self.timer.stage(f"cluster: {n_cl} molecules over {inc.n_codes} codes")
 
     @_span("split")
@@ -870,11 +890,13 @@ class Engine:
                                             device=self.device)
             self.timer.stage("split: 0 molecule codes")
             return
-        K = int(self.cluster_labels.max()) + 1
+        with timing.wait("split"):
+            K = int(self.cluster_labels.max()) + 1
         comb = inc.code_of_pair() * K + self.cluster_labels
         timing.add("sorted_keys", 2 * comb.shape[0])   # unique, then sort
-        uniq, new_code, sizes = torch.unique(
-            comb, sorted=True, return_inverse=True, return_counts=True)
+        with timing.wait("split"):
+            uniq, new_code, sizes = torch.unique(
+                comb, sorted=True, return_inverse=True, return_counts=True)
         self._mol_cache = (uniq, sizes, K)
         pair2 = torch.sort(new_code * inc.n_kmers + inc.code_kmers).values
         self.split_inc = incidence_from_sorted_pairs(
@@ -892,13 +914,17 @@ class Engine:
             return self._report_sharded(out)
         inc = self.inc
         if self._mol_cache is None:  # split computes it on the way
-            K = int(self.cluster_labels.max()) + 1 if inc.n_pairs else 1
+            K = 1
+            if inc.n_pairs:
+                with timing.wait("report"):
+                    K = int(self.cluster_labels.max()) + 1
             uniq, sizes = device_unique(
                 inc.code_of_pair() * K + self.cluster_labels,
                 return_counts=True)
             self._mol_cache = (uniq, sizes, K)
         uniq, sizes, K = self._mol_cache
-        n_clusters = torch.bincount(uniq // K, minlength=inc.n_codes)
+        with timing.wait("report", 2 if uniq.numel() else 0):
+            n_clusters = torch.bincount(uniq // K, minlength=inc.n_codes)
         write_report(out, torch.diff(inc.code_offsets), n_clusters, sizes)
         self.timer.stage(f"report: {inc.n_codes} codes")
 
@@ -994,9 +1020,11 @@ class Engine:
             raise ValueError(
                 "per-process fqb shards share barcodes; shard files must be "
                 "barcode-disjoint (split the lane by barcode)")
-        l2g = torch.from_numpy(np.searchsorted(
-            sorted_keys, fqb.barcode_keys.astype(np.int64)).astype(np.int64)
-            if fqb.n_barcodes else np.zeros(1, np.int64)).to(self.device)
+        with timing.wait("lane.shard"):
+            l2g = torch.from_numpy(np.searchsorted(
+                sorted_keys, fqb.barcode_keys.astype(np.int64))
+                .astype(np.int64) if fqb.n_barcodes
+                else np.zeros(1, np.int64)).to(self.device)
         (packed, lengths, bcs, nmask), spans = self._lane(fqb, per)
         lane = (packed, lengths, torch.where(bcs >= 0, l2g[bcs.clamp(min=0)],
                                              -1), nmask)
@@ -1171,8 +1199,9 @@ class Engine:
         for i in range(g.n_local):
             h, c = dt.local_compact(i)
             keep = (c >= lo) & (c <= hi)
-            rows.append(h[keep])
-            crows.append(c[keep])
+            with timing.wait("filter.sharded", 2):
+                rows.append(h[keep])
+                crows.append(c[keep])
         per = g.gather_counts([r.shape[0] for r in rows])
         off = np.concatenate([[0], np.cumsum(per)])[:-1].astype(np.int64)
         self._retained = self._retained_counts = None
@@ -1231,8 +1260,9 @@ class Engine:
         split_sh = SI.split_sharded(self._inc_sh, self._labels_sh)
         self.split_inc = None
         self._split_inc_sh = split_sh
-        self.split_origin = torch.from_numpy(
-            np.stack([codes_m, labels_m], axis=1)).to(self.device)
+        with timing.wait("split"):
+            self.split_origin = torch.from_numpy(
+                np.stack([codes_m, labels_m], axis=1)).to(self.device)
         self.timer.stage(f"split: {len(codes_m)} molecule codes")
 
     def _report_sharded(self, out) -> None:
@@ -1240,12 +1270,12 @@ class Engine:
         O(codes + molecules) reach the host, never the pairs."""
         inc_sh = self._inc_sh
         codes_m, _, sizes = self._labels_sh.molecule_stats(inc_sh)
-        write_report(out, *(torch.from_numpy(np.asarray(a, np.int64))
-                            .to(self.device) for a in (
-                                np.diff(inc_sh.code_offsets),
-                                np.bincount(codes_m,
-                                            minlength=inc_sh.n_codes),
-                                sizes)))
+        cols = (np.diff(inc_sh.code_offsets),
+                np.bincount(codes_m, minlength=inc_sh.n_codes), sizes)
+        with timing.wait("report", 3):
+            cols = [torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
+                    for a in cols]
+        write_report(out, *cols)
         self.timer.stage(f"report: {inc_sh.n_codes} codes")
 
     # -- checkpoint / resume ---------------------------------------------------

@@ -55,18 +55,21 @@ class Incidence:
 
     def code_of_pair(self) -> torch.Tensor:
         """(P,) int64 barcode of every forward-CSR position."""
-        return torch.repeat_interleave(
-            torch.arange(self.n_codes, device=self.device),
-            torch.diff(self.code_offsets))
+        with timing.wait("incidence.code_of_pair", 2):
+            return torch.repeat_interleave(
+                torch.arange(self.n_codes, device=self.device),
+                torch.diff(self.code_offsets))
 
     def kmers_of(self, code: int) -> torch.Tensor:
         """The k-mer ids of barcode ``code``, ascending (a view)."""
-        o = self.code_offsets[code:code + 2].tolist()
+        with timing.wait("incidence.offsets"):
+            o = self.code_offsets[code:code + 2].tolist()
         return self.code_kmers[o[0]:o[1]]
 
     def codes_of(self, kmer: int) -> torch.Tensor:
         """The barcodes holding k-mer ``kmer``, ascending (a view)."""
-        o = self.kmer_offsets[kmer:kmer + 2].tolist()
+        with timing.wait("incidence.offsets"):
+            o = self.kmer_offsets[kmer:kmer + 2].tolist()
         return self.kmer_codes[o[0]:o[1]]
 
 
@@ -116,7 +119,8 @@ def finalize_combined_pairs(keys: torch.Tensor, retained: torch.Tensor,
     idx = torch.clamp(torch.searchsorted(retained, h),
                       max=retained.shape[0] - 1)
     found = retained[idx] == h
-    return (bc * n_kmers + idx)[found]
+    with timing.wait("incidence.finalize"):
+        return (bc * n_kmers + idx)[found]
 
 
 def _csr_from_pairs(pairs: torch.Tensor, n_kmers: int, n_codes: int):

@@ -12,8 +12,10 @@
 * ``flush_grow`` sorts the buffer, sums the weights of equal keys, merges
   them into the sorted table and re-homes it at the power-of-two capacity
   that keeps occupancy under ``load``: it never spills.  The real-key
-  count is read back at every flush (one device sync) and kept exact in
-  ``n_filled``.
+  count is read back at every flush and kept exact in ``n_filled``: the
+  new keys' boolean selections and the bincount of their places wait for
+  the device, ten host waits a flush (``wait.table.flush`` and
+  ``wait.table.segment_sum``, ``utils/timing.py``).
 * ``merge_counts`` merges outside (key, count) pairs the same way;
   ``prune`` and ``prune_rescue`` drop the error band (``Engine.error_fix``).
 * A sort-merge (``flush_grow`` with a non-empty buffer, ``merge_counts``
@@ -76,11 +78,13 @@ def segment_sum_sorted(s: torch.Tensor, w: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Distinct keys of the ascending ``s`` (``INT64_MAX`` pads dropped) and
     the int64 sum of ``w`` over each run of equal keys."""
-    uniq, run = torch.unique_consecutive(s, return_counts=True)
+    with timing.wait("table.segment_sum"):
+        uniq, run = torch.unique_consecutive(s, return_counts=True)
     tot = torch.cumsum(w.to(torch.int64), 0)[torch.cumsum(run, 0) - 1]
     seg = tot - torch.cat([tot.new_zeros(1), tot[:-1]])
     keep = uniq != INT64_MAX
-    return uniq[keep], seg[keep]
+    with timing.wait("table.segment_sum", 2):
+        return uniq[keep], seg[keep]
 
 
 def flush_grow(t: SortedTable, load: float = 0.6) -> SortedTable:
@@ -111,9 +115,13 @@ def _merge_buffer(t: SortedTable, load: float) -> SortedTable:
     found = th[at.clamp(max=max(n_old - 1, 0))] == bk if n_old else \
         torch.zeros_like(bk, dtype=torch.bool)
     old_counts = t.counts[:n_old].clone()
-    old_counts.index_add_(0, at[found], bw[found].to(torch.int32))
+    with timing.wait("table.flush", 2):
+        f_at, f_w = at[found], bw[found]
+    old_counts.index_add_(0, f_at, f_w.to(torch.int32))
+    del f_at, f_w
     new = ~found
-    nk, nw, n_at = bk[new], bw[new], at[new]
+    with timing.wait("table.flush", 3):
+        nk, nw, n_at = bk[new], bw[new], at[new]
     n = n_old + nk.shape[0]
     cap = t.capacity
     while n > load * cap:
@@ -127,7 +135,9 @@ def _merge_buffer(t: SortedTable, load: float) -> SortedTable:
     counts = torch.zeros(cap, dtype=torch.int32, device=dev)
     # a new key lands after the old keys below it and the new keys before
     # it; an old key after the new keys inserted at or before its position
-    before = torch.cumsum(torch.bincount(n_at, minlength=n_old + 1), 0)
+    with timing.wait("table.flush", 2 if n_at.numel() else 0):
+        before = torch.bincount(n_at, minlength=n_old + 1)
+    before = torch.cumsum(before, 0)
     pos = torch.arange(n_old, device=dev) + before[:n_old]
     hashes[pos] = th
     counts[pos] = old_counts
@@ -344,9 +354,13 @@ def count_histogram(hashes: torch.Tensor, counts: torch.Tensor,
     """(max_count + 1,) int64 histogram of resident counts (clipped to
     ``max_count``); bin 0 is always 0."""
     resident = hashes != INT64_MAX
-    c = torch.clamp(counts[resident].to(torch.int64), 0, max_count)
-    hist = torch.bincount(c, minlength=max_count + 1)
-    hist[0] = 0
+    with timing.wait("table.histogram"):
+        c = counts[resident]
+    c = torch.clamp(c.to(torch.int64), 0, max_count)
+    with timing.wait("table.histogram", 2 if c.numel() else 0):
+        hist = torch.bincount(c, minlength=max_count + 1)
+    with timing.wait("table.histogram"):   # a host scalar sent to the device
+        hist[0] = 0
     return hist
 
 
@@ -361,18 +375,21 @@ def compact(t: SortedTable, min_count: int = 0, max_count: int = 0
     keep = c >= min_count
     if max_count:
         keep &= c <= max_count
-    return h[keep], c[keep]
+    with timing.wait("table.compact", 2):
+        return h[keep], c[keep]
 
 
 def _with_keys(t: SortedTable, keep: torch.Tensor) -> SortedTable:
     """The flushed table with only the ``keep`` entries of its first
     ``n_filled`` slots (order kept), at the same capacity."""
-    h = t.hashes[:t.n_filled][keep]
+    with timing.wait("table.prune"):
+        h = t.hashes[:t.n_filled][keep]
     n = h.shape[0]
     hashes = torch.full_like(t.hashes, INT64_MAX)
     counts = torch.zeros_like(t.counts)
     hashes[:n] = h
-    counts[:n] = t.counts[:t.n_filled][keep]
+    with timing.wait("table.prune"):
+        counts[:n] = t.counts[:t.n_filled][keep]
     return SortedTable(hashes, counts, t.buf, t.bufw, 0, n)
 
 
@@ -397,7 +414,9 @@ def prune_rescue(t: SortedTable, occ_h: torch.Tensor, occ_c: torch.Tensor,
     occ = torch.where(found, occ_c[idx.clamp(min=0)], 0)
     band = c <= max_count
     rescued = band & (c > 0) & (occ >= min_reads)
-    return _with_keys(t, ~band | rescued), int(rescued.sum())
+    out = _with_keys(t, ~band | rescued)
+    with timing.wait("table.prune"):
+        return out, int(rescued.sum())
 
 
 def lookup_ids(hashes: torch.Tensor, queries: torch.Tensor

@@ -27,10 +27,12 @@ def distinct_below(s: torch.Tensor, is_new: torch.Tensor, q: torch.Tensor
 def device_unique(values: torch.Tensor, return_counts: bool = False):
     """Sorted distinct values (and their counts) of an integer tensor."""
     timing.add("sorted_keys", values.shape[0])
-    return torch.unique(values, sorted=True, return_counts=return_counts)
+    with timing.wait("dense.unique"):
+        return torch.unique(values, sorted=True, return_counts=return_counts)
 
 
 def device_dense_ranks(values: torch.Tensor) -> torch.Tensor:
     """Rank of each element among the sorted distinct values."""
     timing.add("sorted_keys", values.shape[0])
-    return torch.unique(values, sorted=True, return_inverse=True)[1]
+    with timing.wait("dense.unique"):
+        return torch.unique(values, sorted=True, return_inverse=True)[1]

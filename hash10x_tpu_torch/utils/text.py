@@ -7,7 +7,10 @@ of lines is built as one (rows, width) byte matrix on the tensors' device
 (every field rendered at the block's widest width, leading zeros masked
 out), flattened through the mask, and written once.  The bytes equal the
 f-strings ``f"{v}"`` (decimal) and ``f"{v:x}"`` (hex) of non-negative
-integers.
+integers.  Each block waits for the device a few times (the widest value,
+small host tables sent over, masked selections, the bytes read back),
+each recorded as a host wait ``wait.text.<function>``
+(``utils/timing.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple, Union
 
 import torch
+
+from . import timing
 
 __all__ = ["write_rows", "write_report"]
 
@@ -28,15 +33,19 @@ def _digits(v: torch.Tensor, base: int):
     """(rows, D) ASCII digits of the non-negative ``v`` in ``base`` (10 or
     16) at the widest width D of the block, and the mask of the digits
     each value prints (no leading zeros; at least one digit)."""
-    top = int(v.max()) if v.numel() else 0
+    top = 0
+    if v.numel():
+        with timing.wait("text.digits"):
+            top = int(v.max())
     D = max(len(f"{top:x}" if base == 16 else str(top)), 1)
     j = torch.arange(D, device=v.device)
     if base == 16:
         shifted = v[:, None] >> (4 * (D - 1 - j))
         d = shifted & 15
     else:
-        pows = torch.tensor([10 ** (D - 1 - i) for i in range(D)],
-                            dtype=torch.int64, device=v.device)
+        with timing.wait("text.digits"):
+            pows = torch.tensor([10 ** (D - 1 - i) for i in range(D)],
+                                dtype=torch.int64, device=v.device)
         shifted = v[:, None] // pows
         d = shifted % 10
     chars = (d + 48 + (d > 9) * 39).to(torch.uint8)
@@ -45,7 +54,8 @@ def _digits(v: torch.Tensor, base: int):
 
 
 def _literal(p: bytes, n: int, device):
-    lit = torch.tensor(list(p), dtype=torch.uint8, device=device)
+    with timing.wait("text.literal"):
+        lit = torch.tensor(list(p), dtype=torch.uint8, device=device)
     return lit.expand(n, len(p)), torch.ones((n, len(p)), dtype=torch.bool,
                                              device=device)
 
@@ -54,7 +64,8 @@ def _thousandths(v: torch.Tensor):
     """``v / 1000`` with three decimals: the integer part, a point and
     three digits."""
     m, k = _digits(v // 1000, 10)
-    pows = torch.tensor([100, 10, 1], dtype=torch.int64, device=v.device)
+    with timing.wait("text.thousandths"):
+        pows = torch.tensor([100, 10, 1], dtype=torch.int64, device=v.device)
     frac = ((v % 1000)[:, None] // pows % 10 + 48).to(torch.uint8)
     point, ones = _literal(b".", v.shape[0], v.device)
     return (torch.cat([m, point, frac], 1),
@@ -69,9 +80,12 @@ def _names(idx: torch.Tensor, names: Sequence[str]):
     table = torch.zeros((len(enc), width), dtype=torch.uint8)
     for i, x in enumerate(enc):
         table[i, :len(x)] = torch.tensor(list(x), dtype=torch.uint8)
-    lens = torch.tensor([len(x) for x in enc], device=idx.device)
+    with timing.wait("text.names"):
+        lens = torch.tensor([len(x) for x in enc], device=idx.device)
     row = torch.where((idx >= 0) & (idx < len(names)), idx, len(names))
-    m = table.to(idx.device)[row]
+    with timing.wait("text.names"):
+        table = table.to(idx.device)
+    m = table[row]
     return m, torch.arange(width, device=idx.device)[None, :] \
         < lens[row][:, None]
 
@@ -109,14 +123,17 @@ def _render(parts: Sequence[Part], n: int, device):
         mats.append(m)
         masks.append(k)
     mask = torch.cat(masks, 1)
-    return torch.cat(mats, 1)[mask], mask.sum(1)
+    with timing.wait("text.render"):
+        flat = torch.cat(mats, 1)[mask]
+    return flat, mask.sum(1)
 
 
 def _emit(out, flat: torch.Tensor) -> None:
     """Write the UTF-8 bytes ``flat`` to the text stream ``out``: straight
     to its binary buffer where it has one (a file), skipping a decode and
     an encode of every byte."""
-    data = flat.cpu().numpy()
+    with timing.wait("text.emit"):
+        data = flat.cpu().numpy()
     buffer = getattr(out, "buffer", None)
     if buffer is None:
         out.write(data.tobytes().decode())
@@ -144,8 +161,9 @@ def _place(dst: torch.Tensor, flat: torch.Tensor, lens: torch.Tensor,
            row_start: torch.Tensor) -> None:
     """Scatter each row's bytes (``flat``, rows of ``lens`` bytes) to
     ``dst`` from its ``row_start`` on."""
-    row = torch.repeat_interleave(
-        torch.arange(lens.shape[0], device=lens.device), lens)
+    with timing.wait("text.place", 2):
+        row = torch.repeat_interleave(
+            torch.arange(lens.shape[0], device=lens.device), lens)
     pos = torch.arange(flat.shape[0], device=lens.device) \
         - _starts(lens)[row]
     dst[row_start[row] + pos] = flat
@@ -166,19 +184,23 @@ def write_report(out, n_kmers: torch.Tensor, n_clusters: torch.Tensor,
     for c0 in range(0, n_codes, codes_per_block):
         c1 = min(c0 + codes_per_block, n_codes)
         nc = n_clusters[c0:c1]
-        m0 = int(mol_end[c0 - 1]) if c0 else 0
-        m1 = int(mol_end[c1 - 1])
+        with timing.wait("text.report", 2 if c0 else 1):
+            m0 = int(mol_end[c0 - 1]) if c0 else 0
+            m1 = int(mol_end[c1 - 1])
         code = torch.arange(c0, c1, device=dev)
-        nl = torch.tensor(10, dtype=torch.uint8, device=dev)
+        with timing.wait("text.report"):
+            nl = torch.tensor(10, dtype=torch.uint8, device=dev)
         pflat, plen = _render(
             [b"code ", ("d", code), b" nKmers ", ("d", n_kmers[c0:c1]),
              b" nClusters ", ("d", nc), b" sizes ",
              ("c", torch.where(nc == 0, nl, 0).to(torch.uint8))],
             c1 - c0, dev)
-        mcode = torch.repeat_interleave(
-            torch.arange(c1 - c0, device=dev), nc)
+        with timing.wait("text.report", 2):
+            mcode = torch.repeat_interleave(
+                torch.arange(c1 - c0, device=dev), nc)
         last = torch.zeros(m1 - m0, dtype=torch.bool, device=dev)
-        last[(_starts(nc) + nc - 1)[nc > 0]] = True
+        with timing.wait("text.report", 2):   # the selection, then True sent
+            last[(_starts(nc) + nc - 1)[nc > 0]] = True
         sep = torch.where(last, nl, ord(",")).to(torch.uint8)
         mflat, mlen = _render([("d", sizes[m0:m1]), ("c", sep)],
                                   m1 - m0, dev)
@@ -187,8 +209,9 @@ def write_report(out, n_kmers: torch.Tensor, n_clusters: torch.Tensor,
         code_start = _starts(per_code)
         mol_in_code = _starts(mlen) - _starts(
             torch.zeros_like(plen).index_add_(0, mcode, mlen))[mcode]
-        buf = torch.empty(int(per_code.sum()), dtype=torch.uint8,
-                          device=dev)
+        with timing.wait("text.report"):
+            n_bytes = int(per_code.sum())
+        buf = torch.empty(n_bytes, dtype=torch.uint8, device=dev)
         _place(buf, pflat, plen, code_start)
         _place(buf, mflat, mlen, code_start[mcode] + plen[mcode]
                + mol_in_code)

@@ -24,11 +24,20 @@ of a device value: its events are resolved (``Event.query``, then
 and an event the stream has not reached yet stays for a later read.  Names
 never begin with ``stage:``, a prefix the benchmark's stage ranges own.
 
+Host waits: :func:`wait` wraps each statement that makes the host wait
+for the card (a read of a device value, a shape that depends on device
+data, a host-device copy that is not ``non_blocking``), named after its
+site.  It adds its synchronisations to the counter ``host_waits`` and
+records the host-clock span ``wait.<site>``, whose ``n`` counts those
+synchronisations, under the span that is open; it takes no stream clock.
+The same statements wait on the CPU too (there they read host memory), so
+the counts do not depend on the device.
+
 While one of its spans is open a timer is the current one, and code below
-the engine records through this module's :func:`span` and :func:`add`, which
-do nothing while no timer is current (a table flushed outside an engine
-records nothing).  :func:`recording` makes another timer, or none, current
-for a block.
+the engine records through this module's :func:`span`, :func:`wait` and
+:func:`add`, which do nothing while no timer is current (a table flushed
+outside an engine records nothing).  :func:`recording` makes another
+timer, or none, current for a block.
 """
 
 from __future__ import annotations
@@ -41,12 +50,16 @@ import time
 
 import torch
 
-__all__ = ["StageTimer", "span", "add", "add_device", "recording",
+__all__ = ["StageTimer", "span", "wait", "add", "add_device", "recording",
            "kernel_device_ms"]
 
 _current = None   # the timer whose span is open innermost, or None
 _NULL = contextlib.nullcontext()
 _FREE = {}   # device -> timing events of resolved spans, for reuse
+_STREAMS = {}   # (stream id, device index, device type) -> torch's Stream
+# the event class's base: its record and elapsed_time called directly,
+# without the Python wrappers of torch.cuda.Event (~0.4 µs each)
+_EVENT = torch.cuda.Event.__bases__[0]
 
 
 def span(name: str, device: bool = False):
@@ -54,6 +67,17 @@ def span(name: str, device: bool = False):
     while no timer is current."""
     t = _current
     return _NULL if t is None else t.span(name, device)
+
+
+def wait(site: str, n: int = 1):
+    """A context manager around a block that makes the host wait for the
+    card ``n`` times: adds ``n`` to the current timer's counter
+    ``host_waits`` and records the block as the host-clock span
+    ``wait.<site>`` under the span open when it begins, its ``n`` counting
+    the waits.  It opens no span of its own and takes no stream clock.
+    Nothing while no timer is current."""
+    t = _current
+    return _NULL if t is None else _Wait(t, "wait." + site, n)
 
 
 def add(name: str, n: int = 1) -> None:
@@ -84,6 +108,21 @@ def recording(timer):
         _current = prev
 
 
+def _current_stream(device: torch.device):
+    """``torch.cuda.current_stream(device)``, without making a new Stream
+    object each call (that took 5.4 of a device span's microseconds of
+    host time on an H100 host): the stream's ids, read from torch, key a
+    Stream kept for them."""
+    key = torch._C._cuda_getCurrentStream(
+        device.index if device.index is not None
+        else torch._C._cuda_getDevice())
+    s = _STREAMS.get(key)
+    if s is None:
+        s = _STREAMS[key] = torch.cuda.Stream(
+            stream_id=key[0], device_index=key[1], device_type=key[2])
+    return s
+
+
 class _Span:
     """One open span of ``timer`` (see :meth:`StageTimer.span`)."""
 
@@ -103,9 +142,9 @@ class _Span:
             self.rf = torch.profiler.record_function(self.name)
             self.rf.__enter__()
         if self.cuda:
-            self.stream = torch.cuda.current_stream(t.device)
+            self.stream = _current_stream(t.device)
             self.e0 = t._event()
-            self.e0.record(self.stream)
+            _EVENT.record(self.e0, self.stream)
         t._open.append(self)
         self.child = 0.0
         self.t0 = time.perf_counter()
@@ -127,13 +166,50 @@ class _Span:
             t._open[-1].child += dt
         if self.cuda:
             e1 = t._event()
-            e1.record(self.stream)
+            _EVENT.record(e1, self.stream)
             t._pending.append((r, self.e0, e1))
         if self.rf is not None:
             self.rf.__exit__(*exc)
         _current = self.prev
         if not t._open:
             t._resolve()
+        return False
+
+
+class _Wait:
+    """One host wait of ``timer`` (see :func:`wait`): the counter and the
+    span record written directly, with no open-span entry, no event and
+    no stream."""
+
+    __slots__ = ("timer", "name", "n", "rf", "t0")
+
+    def __init__(self, timer, name: str, n: int):
+        self.timer, self.name, self.n = timer, name, n
+
+    def __enter__(self):
+        self.rf = None
+        if torch._C._autograd._profiler_enabled():
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        t = self.timer
+        c = t.counters
+        c["host_waits"] = c.get("host_waits", 0) + self.n
+        parent = t._open[-1] if t._open else None
+        key = (self.name, parent.name if parent is not None else None)
+        r = t._spans.get(key)
+        if r is None:
+            r = t._spans[key] = [0, 0.0, 0.0, None]
+        r[0] += self.n
+        r[1] += dt
+        if parent is not None:
+            parent.child += dt
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
         return False
 
 
@@ -214,16 +290,16 @@ class StageTimer:
         free = _FREE.setdefault(self.device, [])
         for r, e0, e1 in self._pending:
             if e1.query():
-                r[3] += e0.elapsed_time(e1) / 1e3
+                r[3] += _EVENT.elapsed_time(e0, e1) / 1e3
                 free += (e0, e1)
             else:
                 left.append((r, e0, e1))
         self._pending = left
 
     def spans(self) -> list:
-        """One record per (name, parent): {"name", "parent", "n", "host_s",
-        "self_s" (host seconds outside its child spans), "device_s" (CUDA
-        spans)}."""
+        """One record per (name, parent): {"name", "parent", "n" (the waits
+        of a ``wait.<site>`` record), "host_s", "self_s" (host seconds
+        outside its child spans and waits), "device_s" (CUDA spans)}."""
         self._resolve()
         out = []
         for (name, parent), (n, host, child, dev) in self._spans.items():

@@ -26,18 +26,42 @@ SHARD_COUNTERS = ("shard.route_keys", "shard.route_slots",
 
 # span -> the parents it may have on the sharded path
 PARENTS = {
-    "count": {None}, "incidence": {None}, "cluster": {None},
-    "split": {None}, "report": {None},
+    "count": {None}, "filter": {None}, "incidence": {None},
+    "cluster": {None}, "split": {None}, "report": {None},
     "lane": {"count"}, "lane.order": {"lane"}, "lane.batches": {"lane"},
     "lane.copy": {"lane"},
     "table.flush": {"count", "incidence", "cluster.cooccur"},
     "shard.route": {"count", "incidence", "cluster.cooccur"},
     "cluster.cooccur": {"cluster"}, "cluster.friends": {"cluster"},
     "cluster.edges": {"cluster"}, "cluster.round": {"cluster"},
+    # host waits (``timing.wait``), under the span their work lies in
+    "wait.lane.batches": {"lane.batches"}, "wait.count.overflow": {"count"},
+    "wait.shard.step": {"count", "incidence"}, "wait.shard.table": {"count"},
+    "wait.shard.host_sum": {"count", "incidence", "shard.route",
+                            "cluster.cooccur", "cluster"},
+    "wait.table.flush": {"table.flush"},
+    "wait.table.segment_sum": {"table.flush", "cluster.cooccur.reduce"},
+    "wait.table.compact": {"filter", "incidence", "cluster.friends"},
+    "wait.filter.sharded": {"filter"},
+    "wait.shard.counts": {"filter", "incidence", "split"},
+    "wait.shard.route": {"shard.route"},
+    "wait.shard.incidence": {"incidence", "cluster.cooccur", "report"},
+    "wait.cluster.shift_join": {"cluster.cooccur", "cluster.edges"},
+    "wait.cluster.cooccur": {"cluster.cooccur"},
+    "wait.cluster.friends": {"cluster.friends"},
+    "wait.cluster.edges": {"cluster.edges"},
+    "wait.cluster.round": {"cluster.round"},
+    "wait.cluster.canonical": {"cluster"},
+    "wait.shard.molecules": {"split"}, "wait.split": {"split"},
+    "wait.report": {"report"},
+    **{f"wait.text.{s}": {"report"} for s in (
+        "digits", "literal", "render", "emit", "place", "report")},
 }
 
 # the one-card pass's counters and span counts on this lane, as the
-# program gave them before the sharded path recorded anything
+# program gave them before the sharded path recorded anything, and the
+# host waits (the ``filter`` span and the ``wait.*`` keys) since they are
+# recorded
 ONE_CARD = {
     "cluster.cooccur.n": 1, "cluster.cooccur.reduce.n": 1,
     "cluster.edges.n": 1, "cluster.friends.n": 1, "cluster.n": 1,
@@ -46,7 +70,18 @@ ONE_CARD = {
     "graph_captures": 0, "incidence.n": 1, "lane.batches.n": 1,
     "lane.copy.n": 1, "lane.n": 1, "lane.order.n": 1, "lane_bytes": 57600,
     "lane_staged_bytes": 0, "report.n": 1, "sorted_keys": 628645,
-    "split.n": 1, "step.n": 6, "table.flush.n": 6}
+    "split.n": 1, "step.n": 6, "table.flush.n": 6,
+    "filter.n": 1, "host_waits": 167,
+    "wait.cluster.canonical.n": 1, "wait.cluster.edges.n": 28,
+    "wait.cluster.friends.n": 1, "wait.cluster.molecules.n": 1,
+    "wait.cluster.round.n": 4, "wait.cluster.shift_join.n": 23,
+    "wait.count.overflow.n": 1, "wait.incidence.code_of_pair.n": 8,
+    "wait.incidence.finalize.n": 1, "wait.incidence.overflow.n": 1,
+    "wait.lane.batches.n": 3, "wait.report.n": 2, "wait.split.n": 2,
+    "wait.table.compact.n": 2, "wait.table.flush.n": 42,
+    "wait.table.segment_sum.n": 21, "wait.text.digits.n": 8,
+    "wait.text.emit.n": 1, "wait.text.literal.n": 4, "wait.text.place.n": 4,
+    "wait.text.render.n": 2, "wait.text.report.n": 7}
 
 
 @functools.lru_cache(maxsize=None)

@@ -27,7 +27,8 @@ torch.set_num_threads(2)
 
 # span -> the parents it may have
 PARENTS = {
-    "count": {None}, "incidence": {None}, "cluster": {None},
+    "count": {None}, "filter": {None}, "incidence": {None},
+    "cluster": {None},
     "lane": {"count"}, "lane.order": {"lane"}, "lane.batches": {"lane"},
     "lane.copy": {"lane"},
     "step": {"count", "incidence"}, "table.flush": {"count", "incidence"},
@@ -35,6 +36,20 @@ PARENTS = {
     "cluster.cooccur.reduce": {"cluster.cooccur"},
     "cluster.friends": {"cluster"}, "cluster.edges": {"cluster"},
     "cluster.round": {"cluster"},
+    # host waits (``timing.wait``), under the span their work lies in
+    "wait.lane.batches": {"lane.batches"}, "wait.count.overflow": {"count"},
+    "wait.table.flush": {"table.flush"},
+    "wait.table.segment_sum": {"table.flush", "cluster.cooccur.reduce"},
+    "wait.table.compact": {"filter"},
+    "wait.incidence.overflow": {"incidence"},
+    "wait.incidence.finalize": {"incidence"},
+    "wait.cluster.shift_join": {"cluster.cooccur", "cluster.edges"},
+    "wait.cluster.friends": {"cluster.friends"},
+    "wait.cluster.edges": {"cluster.edges"},
+    "wait.cluster.round": {"cluster.round"},
+    "wait.incidence.code_of_pair": {"cluster"},
+    "wait.cluster.canonical": {"cluster"},
+    "wait.cluster.molecules": {"cluster"},
 }
 
 
@@ -68,6 +83,8 @@ def test_every_key_is_exported():
                             for k in ("host_s", "n")} | {
         "cluster.uf_edges", "cluster.uf_hooks"}
     assert set(stats) == want            # no device_s on the CPU
+    assert stats["host_waits"] == sum(stats[f"{n}.n"] for n in PARENTS
+                                      if n.startswith("wait."))
     assert stats["cluster.uf_edges"] == stats["cluster.uf_hooks"] == 0
     assert all(stats[f"{n}.n"] >= 1 for n in PARENTS)
     assert stats["lane.n"] == 1          # the incidence reuses the lane
@@ -155,7 +172,10 @@ def test_outside_an_engine_nothing_records():
     t = st.append(t, torch.arange(50, dtype=torch.int64))
     with timing.recording(timer):
         st.flush_grow(t)
-    assert timer.counters == {"flushes": 1, "sorted_keys": 50}
+    # a flush waits ten times (``test_torch_waits.py``), but the 50 keys
+    # are all in the table: no new key's place is counted, two fewer
+    assert timer.counters == {"flushes": 1, "sorted_keys": 50,
+                              "host_waits": 8}
     assert timer.span_totals()["table.flush"]["n"] == 1
 
 
